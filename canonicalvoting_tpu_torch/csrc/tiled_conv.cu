@@ -1,10 +1,11 @@
 // Occupied-tile convolutions of the dense MinkUNet backbone, for sm_90a.
 //
 // Replaces the Pallas TPU kernels of canonicalvoting_tpu/ops/pallas/
-// tiled_conv.py: tiled_conv3d (_kernel), tiled_down2 (_down2_kernel) and
-// tiled_up2 (_up2_kernel). Each computes the same function over the same
-// margined channel-last grids (X + 2MX, Y + 2MY, Z + 2MZ, C) and the same
-// tile lists; cells outside the listed tiles are left as the caller's zeros.
+// tiled_conv.py: tiled_conv3d (_kernel), its prefolded=True stem mode,
+// tiled_down2 (_down2_kernel) and tiled_up2 (_up2_kernel). Each computes the
+// same function over the same margined channel-last grids (X + 2MX, Y + 2MY,
+// Z + 2MZ, C) and the same tile lists; cells outside the listed tiles are
+// left as the caller's zeros.
 //
 // Design. Every kernel is an implicit GEMM whose rows are the cells of the
 // listed tiles, flattened (row = tile * cells + local cell, z fastest), so a
@@ -23,6 +24,15 @@
 // are one template, tc_kernel, on the tensor cores (WMMA bf16 tiles, f32
 // accumulation, see below). float32 grids on the card are refused by the
 // wrappers; the plain versions serve them on the CPU.
+//
+// The prefolded stem (tiled_conv3d_prefolded_launch) is the same GEMM over
+// fold_dydz's grid: the (dy, dz) taps of the k = 5 stem already sit in its
+// channels (lane c*k*k + dz*k + dy, padded to a multiple of 8 so the 16-byte
+// operand loads stay aligned), so only the k x-offsets remain as taps
+// (offset (dx - h) * Ym * Zm cells) and the reduction is k * Cf, with the
+// weights in _fold_w's prefolded row order (dx; c, dz, dy). Cf = 80 for the
+// 3-channel stem: 400 reduction indices against 32 outputs, with the stem's
+// BN, mask and ReLU epilogue.
 //
 // Bound. The function needs the MACs of occupied (output, tap) pairs only,
 // since empty cells hold zeros, and must move the listed cells' inputs and
@@ -82,7 +92,7 @@ __device__ __forceinline__ long long flat(const Grid& g, int x, int y, int z) {
 
 constexpr int TM = 64, TN = 64, TK = 32, TT = 128;
 constexpr int LDA = TK + 8, LDB = TN + 8, LDC = TN + 4;
-enum { CONV = 0, DOWN = 1, UP = 2 };
+enum { CONV = 0, DOWN = 1, UP = 2, PREF = 3 };
 
 template <int MODE>
 __global__ void __launch_bounds__(TT) tc_kernel(
@@ -104,7 +114,7 @@ __global__ void __launch_bounds__(TT) tc_kernel(
   __shared__ int pc[TM][3];         // UP: parent interior coordinates
   const int tid = threadIdx.x, warp = tid / 32;
   const int n0 = blockIdx.y * TN;
-  const int K = MODE == UP ? cin : k * k * k * cin;
+  const int K = MODE == UP ? cin : MODE == PREF ? k * cin : k * k * k * cin;
   const int N = MODE == UP ? 8 * cout : cout;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
@@ -129,9 +139,10 @@ __global__ void __launch_bounds__(TT) tc_kernel(
       int ix, iy, iz;
       if (row_cell(tl, r, ix, iy, iz)) {
         const int h = MODE == DOWN ? 0 : k / 2;
+        const int hyz = MODE == PREF ? 0 : h;  // prefolded: x taps only
         const int st = MODE == DOWN ? 2 : 1;
         oc = flat(gout, ix + MX, iy + MY, iz + MZ);
-        base = flat(gin, st * ix + MX - h, st * iy + MY - h, st * iz + MZ - h) * cin;
+        base = flat(gin, st * ix + MX - h, st * iy + MY - hyz, st * iz + MZ - hyz) * cin;
       }
     }
     a_base[tid] = base;
@@ -153,7 +164,9 @@ __global__ void __launch_bounds__(TT) tc_kernel(
           long long off = kg;
           if (MODE != UP) {
             const int tap = kg / cin, c = kg - tap * cin;
-            const int dx = tap % k, dy = (tap / k) % k, dz = tap / (k * k);
+            const int dx = MODE == PREF ? tap : tap % k;
+            const int dy = MODE == PREF ? 0 : (tap / k) % k;
+            const int dz = MODE == PREF ? 0 : tap / (k * k);
             off = ((long long)dx * gin.ym + dy) * gin.zm * cin + (long long)dz * cin + c;
           }
           val = *reinterpret_cast<const uint4*>(x + a_base[m] + off);
@@ -168,7 +181,9 @@ __global__ void __launch_bounds__(TT) tc_kernel(
           long long off = kg;
           if (MODE != UP) {
             const int tap = kg / cin, c = kg - tap * cin;
-            const int dx = tap % k, dy = (tap / k) % k, dz = tap / (k * k);
+            const int dx = MODE == PREF ? tap : tap % k;
+            const int dy = MODE == PREF ? 0 : (tap / k) % k;
+            const int dz = MODE == PREF ? 0 : tap / (k * k);
             off = ((long long)dx * gin.ym + dy) * gin.zm * cin + (long long)dz * cin + c;
           }
           val = x[a_base[m] + off];
@@ -331,6 +346,21 @@ extern "C" int tiled_conv3d_launch(
   if (n_rows > 0)
     launch_tc<CONV>(x, cin, g, w, k, cout, tl, n_rows, g, scale, bias, occ, res, cres, rw,
                     rscale, rbias, nullptr, 0, 0, relu, out,
+                    static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: fold_dydz's grid (xm, ym, zm, cf), cf % 8 == 0 for the vector loads;
+// w: (k, cf, cout) prefolded rows; out: (xm, ym, zm, cout)
+extern "C" int tiled_conv3d_prefolded_launch(
+    const void* x, int cf, int xm, int ym, int zm, const void* w, int k, int cout,
+    const int* tiles, int n_rows, int tx, int ty, int tz, const float* scale,
+    const float* bias, const float* occ, int relu, void* out, void* stream) {
+  const Grid g{xm, ym, zm};
+  const Tiles tl{tiles, n_rows, tx, ty, tz};
+  if (n_rows > 0)
+    launch_tc<PREF>(x, cf, g, w, k, cout, tl, n_rows, g, scale, bias, occ, nullptr, 0,
+                    nullptr, nullptr, nullptr, nullptr, 0, 0, relu, out,
                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

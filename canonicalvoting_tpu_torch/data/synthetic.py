@@ -179,3 +179,21 @@ def encode_joint_head_rows(points_w, xyz, scl, prob_is_high, cls, cap):
     hot = np.where(prob_is_high, cls, nclasses)
     logits[r, hot] = 4.0  # softmax prob ~0.858 fg / ~0.016 bg
     return rows
+
+
+def encode_separate_head_rows(points_w, xyz, scl, prob_is_high, cap):
+    """Per-point predictions -> raw per-category head rows (cap, 8), inverse
+    of eval.pipeline.slice_separate_heads (xyz 3 + scale 3 + binary
+    objectness logits 2; upstream train_separate.py:247-249). High rows get
+    the foreground logit 4 (softmax prob ~0.982), the rest the background
+    logit 4 (~0.018). The planted rows of the separate evaluator's tests and
+    of ``chip_smoke.py``."""
+    n = len(points_w)
+    rows = np.zeros((cap, 8), np.float32)
+    rows[:, 6] = 4.0  # background default (low foreground prob)
+    r = np.arange(n)[prob_is_high]
+    rows[r, 0:3] = xyz[prob_is_high]
+    rows[r, 3:6] = np.log(scl[prob_is_high])
+    rows[r, 6] = 0.0
+    rows[r, 7] = 4.0
+    return rows

@@ -1,12 +1,14 @@
 """Joint detection pipeline: voxelize -> backbone -> vote -> peel -> NMS.
 
 Counterpart of ``canonicalvoting_tpu/eval/pipeline.py:DetectionPipeline`` on
-its dense, tiled, lazy rot/scale path (the upstream inference pass,
+its dense, tiled path (the upstream inference pass,
 ``eval_joint.py:163-303``):
 
   host:   sparse_quantize, dense grid geometry, tile lists
   device: DenseMinkUNet forward (tiled kernels) -> head slice -> objectness
           vote splat -> box peeling with rot/scale sampled at peeled cells
+          (``lazy_rot_scale=True``), or the 6-channel splat -> box peeling
+          on the dense rot/scale grids (``lazy_rot_scale=False``)
   host:   per-class NMS at IoU 0.3, class naming
 
 The pipeline runs on the card unless ``device="cpu"`` is asked for; the
@@ -29,8 +31,9 @@ from canonicalvoting_tpu_torch.data.dense_prep import (
 from canonicalvoting_tpu_torch.data.geometry import IDX2NAME, NAME2CATNAME, NCLASSES
 from canonicalvoting_tpu_torch.decode.peeling import PeelConfig, peel_boxes
 from canonicalvoting_tpu_torch.metrics.ap import nms as nms_host
+from canonicalvoting_tpu_torch.models.dense_unet import STEM_IMPLS
 from canonicalvoting_tpu_torch.ops.hough_voting import (
-    compute_corners, grid_dims_from_corners, hough_voting_obj,
+    clipped_grid_dims, compute_corners, hough_voting, hough_voting_obj,
     round_grid_shape, vote_stats_at_cell)
 from canonicalvoting_tpu_torch.ops.voxelize import sparse_quantize
 
@@ -50,6 +53,12 @@ def slice_joint_heads(out: torch.Tensor, nclasses: int = NCLASSES):
     class_pred = torch.argmax(out_class[..., :-1], dim=-1).to(torch.int32)
     prob_pred = torch.softmax(out_class, dim=-1)[..., :-1].max(-1).values
     return xyz, scale, class_pred, prob_pred
+
+
+def slice_separate_heads(out: torch.Tensor):
+    """(xyz, scale, prob) of per-category head rows (..., 8): xyz 3 + scale
+    3 + binary objectness logits 2 (upstream train_separate.py:247-249)."""
+    return out[..., :3], out[..., 3:6], torch.softmax(out[..., 6:8], -1)[..., 1]
 
 
 @dataclass
@@ -115,6 +124,12 @@ class DetectionPipeline:
     # iterations and 2x the boxes, at most max_retries times
     retry_on_truncation: bool = True
     max_retries: int = 2
+    # True: the objectness splat, with rot/scale sampled at the peeled cells;
+    # False: the 6-channel splat and the dense rot/scale grids
+    lazy_rot_scale: bool = True
+    # the model owns its stem ("tiled" or "prefold"); a value here replaces
+    # the model's, None keeps it
+    stem_impl: Optional[str] = None
     device: str = "cuda"
 
     def __post_init__(self):
@@ -124,6 +139,11 @@ class DetectionPipeline:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DetectionPipeline runs on the GPU and none is "
                                "available; pass device='cpu' to run on the CPU")
+        if self.stem_impl is not None:
+            if self.stem_impl not in STEM_IMPLS:
+                raise ValueError(f"stem_impl must be one of {STEM_IMPLS}, "
+                                 f"got {self.stem_impl!r}")
+            self.model.stem_impl = self.stem_impl
         self.model = self.model.to(self.device).eval().requires_grad_(False)
 
     # ------------------------------------------------------------------
@@ -148,27 +168,31 @@ class DetectionPipeline:
     def tail(self, out: torch.Tensor, coords_w: torch.Tensor,
              valid: torch.Tensor, grid_shape: tuple,
              peel: Optional[PeelConfig] = None) -> Dict[str, torch.Tensor]:
-        """Head slice -> objectness splat -> peel (rot/scale sampled lazily
-        at the peeled cells)."""
+        """Head slice -> vote splat -> peel: the objectness splat with
+        rot/scale sampled at the peeled cells (lazy), or the 6-channel splat
+        and the dense rot/scale grids."""
         xyz, scale, class_pred, prob = slice_joint_heads(out)
         if self.log_scale:
             scale = torch.exp(scale)
+        peel = peel or self.peel
         corners = compute_corners(coords_w, valid)
         corner = corners[0]
-        go = hough_voting_obj(coords_w, xyz, scale, prob, res=self.res,
-                              num_rots=self.num_rots, grid_shape=grid_shape,
-                              corners=corners, valid=valid)
-        dims = torch.minimum(
-            grid_dims_from_corners(corners, self.res),
-            torch.tensor(grid_shape, dtype=torch.int32, device=go.device))
+        kw = dict(res=self.res, num_rots=self.num_rots, grid_shape=grid_shape,
+                  corners=corners, valid=valid)
+        if not self.lazy_rot_scale:
+            go, gr, gs = hough_voting(coords_w, xyz, scale, prob, **kw)
+            return peel_boxes(go, coords_w, xyz, prob, class_pred, corner,
+                              peel, valid=valid, grid_rot=gr, grid_scale=gs)
+        go = hough_voting_obj(coords_w, xyz, scale, prob, **kw)
+        dims = clipped_grid_dims(corners, self.res, grid_shape)
 
         def rot_scale_fn(cand):
             return vote_stats_at_cell(coords_w, xyz, scale, prob, corner, dims,
                                       self.res, self.num_rots, cand,
                                       valid=valid)
 
-        return peel_boxes(go, coords_w, xyz, prob, class_pred, corner,
-                          peel or self.peel, rot_scale_fn, valid=valid)
+        return peel_boxes(go, coords_w, xyz, prob, class_pred, corner, peel,
+                          rot_scale_fn, valid=valid)
 
     def run_scene(self, args: SceneArgs, peel: Optional[PeelConfig] = None):
         out = self.backbone(args)

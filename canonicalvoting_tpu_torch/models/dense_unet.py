@@ -6,6 +6,13 @@ dense convolution whose outputs are masked by the level's occupancy; every
 conv of the U-Net runs through ``ops/tiled_conv.py`` on the occupied tiles
 only, with BatchNorm folded into the kernels' epilogues.
 
+The k=5 stem runs through ``tiled_conv3d`` over the 3-channel grid
+(``stem_impl="tiled"``), or through ``tiled_conv3d_prefolded`` over the
+grid's (dy, dz) fold (``stem_impl="prefold"``, the separate evaluator's
+default). :func:`shared_scene_grids` builds the weight-independent grids of a
+scene once, so several models over one scene share them (``forward(...,
+shared=)``).
+
 Parameter and buffer names follow the JAX parameter tree (``conv0p1s1.kernel``,
 ``block1_0.conv1.kernel``, ``bn0.scale``, ``bn0.mean``, ``bntr4.var``,
 ``final.bias``, ...), so ``utils/weights.py`` copies a JAX variables tree in
@@ -14,7 +21,7 @@ without renaming. Kernels are (K, Cin, Cout) with x-fastest offsets.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,9 +30,10 @@ from torch import nn
 from canonicalvoting_tpu_torch.data.dense_prep import (
     CONV_KEY_OFF, MX, MY, MZ, STEM_KEY, TRANS_KEYS)
 from canonicalvoting_tpu_torch.ops.tiled_conv import (
-    tiled_conv3d, tiled_down2, tiled_up2)
+    fold_dydz, tiled_conv3d, tiled_conv3d_prefolded, tiled_down2, tiled_up2)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+STEM_IMPLS = ("tiled", "prefold")
 
 
 class Conv(nn.Module):
@@ -88,6 +96,48 @@ class BasicBlock(nn.Module):
                             relu_out=True)
 
 
+def occupancy_pyramid(occ0: torch.Tensor, levels: int = 5) -> List[torch.Tensor]:
+    """Margined occupancy per level: 2x2x2 max-pool of the interior."""
+    occ = [occ0]
+    for _ in range(levels - 1):
+        o = occ[-1][MX:-MX, MY:-MY, MZ:-MZ]
+        o = F.max_pool3d(o[None, None], 2)[0, 0]
+        occ.append(F.pad(o, (MZ, MZ, MY, MY, MX, MX)))
+    return occ
+
+
+@torch.no_grad()
+def shared_scene_grids(feats: torch.Tensor, flat_idx: torch.Tensor,
+                       valid: torch.Tensor, grid_dims: Tuple[int, int, int], *,
+                       in_channels: int, stem_kernel: int = 5,
+                       compute_dtype: str = "bfloat16",
+                       stem_impl: str = "tiled") -> Dict[str, object]:
+    """The grids of a scene that no weight touches: ``x`` the margined
+    (Xm, Ym, Zm, Cin) scatter of the point rows, ``occ`` the occupancy
+    pyramid and, for ``stem_impl="prefold"``, ``x_folded`` its (dy, dz)
+    fold. Counterpart of the JAX package's ``shared_scene_grids``
+    (``models/dense_unet.py:554``): the separate evaluator builds them once
+    per scene for its nine models. The JAX package's ``fresh_l0_donors``
+    has no counterpart: it lets XLA reuse dead grids as kernel outputs and
+    changes no value, and PyTorch's caching allocator reuses the freed grids
+    of one model for the next anyway."""
+    dt = _DTYPES[compute_dtype]
+    gx, gy, gz = grid_dims
+    shape = (gx + 2 * MX, gy + 2 * MY, gz + 2 * MZ)
+    n_cells = shape[0] * shape[1] * shape[2]
+    keep = (valid > 0) & (flat_idx >= 0)
+    ids = flat_idx[keep].long()
+    x = torch.zeros(n_cells, in_channels, dtype=dt, device=feats.device)
+    x[ids] = feats[keep].to(dt)
+    occ0 = torch.zeros(n_cells, dtype=torch.float32, device=feats.device)
+    occ0[ids] = 1.0
+    x = x.view(shape + (in_channels,))
+    out = {"x": x, "occ": occupancy_pyramid(occ0.view(shape))}
+    if stem_impl == "prefold":
+        out["x_folded"] = fold_dydz(x, stem_kernel)
+    return out
+
+
 class DenseMinkUNet(nn.Module):
     """MinkUNet (basic blocks) on margined dense grids.
 
@@ -96,19 +146,23 @@ class DenseMinkUNet(nn.Module):
     (``data.dense_prep.dense_flat_ids``; -1 when outside), ``valid`` (N,),
     ``grid_dims`` the interior (X, Y, Z), ``tiles`` {key: (T, 3) int32} and
     ``tile_shapes`` {key: tile shape} from ``data.dense_prep.level_tiles``.
-    Returns (N, Cout) float32 rows, zero at invalid rows.
+    Returns (N, Cout) float32 rows, zero at invalid rows. ``shared`` takes
+    the scene's :func:`shared_scene_grids` (built here when not given).
+    ``stem_impl`` is "tiled" or "prefold" and changes no parameter.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2),
                  planes: Sequence[int] = (32, 64, 128, 256, 256, 128, 96, 96),
                  init_dim: int = 32, stem_kernel: int = 5,
-                 compute_dtype: str = "bfloat16"):
+                 compute_dtype: str = "bfloat16", stem_impl: str = "tiled"):
         super().__init__()
+        if stem_impl not in STEM_IMPLS:
+            raise ValueError(f"stem_impl must be one of {STEM_IMPLS}, got {stem_impl!r}")
         self.in_channels, self.out_channels = in_channels, out_channels
         self.layers, self.planes = tuple(layers), tuple(planes)
         self.init_dim, self.stem_kernel = init_dim, stem_kernel
-        self.compute_dtype = compute_dtype
+        self.compute_dtype, self.stem_impl = compute_dtype, stem_impl
         self.conv0p1s1 = Conv(in_channels, init_dim, stem_kernel)
         self.bn0 = BatchNorm(init_dim)
         ch = init_dim
@@ -126,6 +180,14 @@ class DenseMinkUNet(nn.Module):
                                   planes[4 + d], layers[4 + d])
         self.final = Conv(ch, out_channels, 1, use_bias=True)
 
+    def config(self) -> Dict[str, object]:
+        """The constructor's keywords: a twin of this model."""
+        return dict(in_channels=self.in_channels,
+                    out_channels=self.out_channels, layers=self.layers,
+                    planes=self.planes, init_dim=self.init_dim,
+                    stem_kernel=self.stem_kernel,
+                    compute_dtype=self.compute_dtype, stem_impl=self.stem_impl)
+
     def _add_blocks(self, name, cin, planes, n) -> int:
         for j in range(n):
             self.add_module(f"{name}_{j}", BasicBlock(cin, planes))
@@ -137,43 +199,33 @@ class DenseMinkUNet(nn.Module):
             x = getattr(self, f"{name}_{j}")(x, occ, tiles, ts)
         return x
 
-    @staticmethod
-    def occupancy_pyramid(occ0: torch.Tensor, levels: int = 5) -> List[torch.Tensor]:
-        """Margined occupancy per level: 2x2x2 max-pool of the interior."""
-        occ = [occ0]
-        for _ in range(levels - 1):
-            o = occ[-1][MX:-MX, MY:-MY, MZ:-MZ]
-            o = F.max_pool3d(o[None, None], 2)[0, 0]
-            occ.append(F.pad(o, (MZ, MZ, MY, MY, MX, MX)))
-        return occ
-
     @torch.no_grad()
     def forward(self, feats: torch.Tensor, flat_idx: torch.Tensor,
                 valid: torch.Tensor, grid_dims: Tuple[int, int, int],
                 tiles: Dict[int, torch.Tensor],
-                tile_shapes: Dict[int, Tuple[int, int, int]]) -> torch.Tensor:
+                tile_shapes: Dict[int, Tuple[int, int, int]],
+                shared: Optional[Dict[str, object]] = None) -> torch.Tensor:
         dt = _DTYPES[self.compute_dtype]
-        dev = feats.device
-        gx, gy, gz = grid_dims
-        shape = (gx + 2 * MX, gy + 2 * MY, gz + 2 * MZ)
-        n_cells = shape[0] * shape[1] * shape[2]
-        keep = (valid > 0) & (flat_idx >= 0)
-        ids = flat_idx[keep].long()
-        x = torch.zeros(n_cells, self.in_channels, dtype=dt, device=dev)
-        x[ids] = feats[keep].to(dt)
-        occ0 = torch.zeros(n_cells, dtype=torch.float32, device=dev)
-        occ0[ids] = 1.0
-        occ = self.occupancy_pyramid(occ0.view(shape))
-        x = x.view(shape + (self.in_channels,))
+        if shared is None:
+            shared = shared_scene_grids(
+                feats, flat_idx, valid, grid_dims, in_channels=self.in_channels,
+                stem_kernel=self.stem_kernel, compute_dtype=self.compute_dtype,
+                stem_impl=self.stem_impl)
+        x, occ = shared["x"], shared["occ"]
+        n_cells = occ[0].numel()
 
         def conv_key(lvl):
             return CONV_KEY_OFF + lvl if CONV_KEY_OFF + lvl in tiles else lvl
 
         a, b = self.bn0.affine()
-        out_p1 = tiled_conv3d(x, self.conv0p1s1.kernel, tiles[STEM_KEY],
-                              tile_shape=tile_shapes[STEM_KEY],
-                              kernel_size=self.stem_kernel, scale=a, bias=b,
-                              occ=occ[0], relu_out=True)
+        stem = dict(tile_shape=tile_shapes[STEM_KEY],
+                    kernel_size=self.stem_kernel, scale=a, bias=b, occ=occ[0],
+                    relu_out=True)
+        if self.stem_impl == "prefold":
+            out_p1 = tiled_conv3d_prefolded(
+                shared["x_folded"], self.conv0p1s1.kernel, tiles[STEM_KEY], **stem)
+        else:
+            out_p1 = tiled_conv3d(x, self.conv0p1s1.kernel, tiles[STEM_KEY], **stem)
         skips = []
         x = out_p1
         for i in range(4):

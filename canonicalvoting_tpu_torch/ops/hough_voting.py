@@ -1,10 +1,12 @@
-"""Canonical Hough voting, inference path (objectness grid + lazy rot/scale).
+"""Canonical Hough voting, inference path.
 
 Counterpart of the inference half of ``canonicalvoting_tpu/ops/
 hough_voting.py``: ``hough_voting_obj`` builds the objectness vote grid
 through the splat kernel (``ops/hv_splat.py``), and ``vote_stats_at_cell``
-samples the normalized rotation and scale votes at one cell, so the box
-peeler never needs the dense rot/scale grids.
+samples the normalized rotation and scale votes at one cell, so the lazy
+box peeler never needs the dense rot/scale grids; ``hough_voting`` builds
+all three grids through the 6-channel splat (the non-lazy path). Its
+backward pass is training work and is not ported yet.
 
 Semantics (upstream ``hv_cuda_kernel.cu``): for every point with predicted
 LCC ``xyz``, scale and objectness, each yaw theta_i = i * 2pi / num_rots
@@ -20,7 +22,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from canonicalvoting_tpu_torch.ops.hv_splat import TWO_PI, device_scalar, hv_splat
+from canonicalvoting_tpu_torch.ops.hv_splat import (
+    TWO_PI, device_scalar, hv_splat, hv_splat6)
 
 
 def compute_corners(points: torch.Tensor,
@@ -41,6 +44,15 @@ def grid_dims_from_corners(corners: torch.Tensor, res: float) -> torch.Tensor:
     return ((corners[1] - corners[0]) / res).to(torch.int32) + 1
 
 
+def clipped_grid_dims(corners: torch.Tensor, res: float,
+                      grid_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """The grid dims of :func:`grid_dims_from_corners` clipped to the
+    static capacity ``grid_shape``: the bounds of every vote test."""
+    return torch.minimum(grid_dims_from_corners(corners, res),
+                         torch.tensor(grid_shape, dtype=torch.int32,
+                                      device=corners.device))
+
+
 def round_grid_shape(dims, multiple=64, cap: Optional[tuple] = None) -> tuple:
     """Host helper: round concrete dims up to per-axis multiples."""
     if isinstance(multiple, int):
@@ -57,33 +69,38 @@ def round_grid_shape(dims, multiple=64, cap: Optional[tuple] = None) -> tuple:
 
 def vote_stats_at_cell(points, xyz, scale, obj, corner, dims, res: float,
                        num_rots: int, cell, valid=None):
-    """(rot_vec (2,), scale_vec (3,)): the normalized rotation and scale vote
-    channels that the dense grids would hold at ``cell`` (upstream
-    accumulation + ``/ (obj + 1e-7)``), from the per-axis tent weights
-    ``max(0, 1 - |u - c|)`` of every vote."""
+    """(rot_vec (..., 2), scale_vec (..., 3)): the normalized rotation and
+    scale vote channels that the dense grids would hold at ``cell``
+    (upstream accumulation + ``/ (obj + 1e-7)``), from the per-axis tent
+    weights ``max(0, 1 - |u - c|)`` of every vote.
+
+    ``xyz``/``scale`` (..., N, 3), ``obj`` (..., N) and ``cell`` (..., 3)
+    may carry leading batch dims (the categories of the batched peel); each
+    batch entry sums exactly as an unbatched call does."""
     # float32 angle products, as the JAX package forms them here
     t = torch.arange(num_rots, dtype=torch.float32, device=points.device) \
         * float(np.float32(TWO_PI / num_rots))
-    c, s = torch.cos(t)[None], torch.sin(t)[None]
+    c, s = torch.cos(t), torch.sin(t)
     res = device_scalar(res, points.device)
     corr = xyz * scale
-    cx, cz = corr[:, 0:1], corr[:, 2:3]
-    ux = (points[:, 0:1] - cx * c + cz * s - corner[0]) / res
-    uy = (points[:, 1] - corr[:, 1] - corner[1]) / res
+    cx, cz = corr[..., 0:1], corr[..., 2:3]
+    ux = (points[:, 0:1] - cx * c + cz * s - corner[0]) / res    # (..., N, R)
+    uy = (points[:, 1] - corr[..., 1] - corner[1]) / res         # (..., N)
     uz = (points[:, 2:3] - cx * s - cz * c - corner[2]) / res
     df = dims.float()
     ok = ((ux >= 0.0) & (ux < df[0] - 1.0) & (uz >= 0.0) & (uz < df[2] - 1.0)
-          & ((uy >= 0.0) & (uy < df[1] - 1.0))[:, None])
-    cellf = cell.float()
-    tx = torch.clamp_min(1.0 - torch.abs(ux - cellf[0]), 0.0)
-    ty = torch.clamp_min(1.0 - torch.abs(uy - cellf[1]), 0.0)[:, None]
-    tz = torch.clamp_min(1.0 - torch.abs(uz - cellf[2]), 0.0)
-    w = obj[:, None] * tx * ty * tz * ok.float()
+          & ((uy >= 0.0) & (uy < df[1] - 1.0))[..., None])
+    cellf = cell.float()[..., None, :]                            # (..., 1, 3)
+    tx = torch.clamp_min(1.0 - torch.abs(ux - cellf[..., 0:1]), 0.0)
+    ty = torch.clamp_min(1.0 - torch.abs(uy - cellf[..., 1]), 0.0)[..., None]
+    tz = torch.clamp_min(1.0 - torch.abs(uz - cellf[..., 2:3]), 0.0)
+    w = obj[..., None] * tx * ty * tz * ok.float()
     if valid is not None:
         w = w * (valid > 0).float()[:, None]
-    denom = w.sum() + 1e-7
-    rot_vec = torch.stack([(w * c).sum(), (w * s).sum()]) / denom
-    scale_vec = (w.sum(1)[:, None] * scale).sum(0) / denom
+    denom = (w.sum((-2, -1)) + 1e-7)[..., None]
+    rot_vec = torch.stack([(w * c).sum((-2, -1)), (w * s).sum((-2, -1))],
+                          -1) / denom
+    scale_vec = (w.sum(-1)[..., None] * scale).sum(-2) / denom
     return rot_vec, scale_vec
 
 
@@ -98,8 +115,27 @@ def hough_voting_obj(points: torch.Tensor, xyz: torch.Tensor,
         valid = valid.to(points.dtype)
     if corners is None:
         corners = compute_corners(points, valid)
-    dims = torch.minimum(grid_dims_from_corners(corners, res),
-                         torch.tensor(grid_shape, dtype=torch.int32,
-                                      device=points.device))
+    dims = clipped_grid_dims(corners, res, grid_shape)
     return hv_splat(points, xyz, scale, obj, corners[0], dims, res,
                     num_rots=num_rots, grid_shape=grid_shape, valid=valid)
+
+
+def hough_voting(points: torch.Tensor, xyz: torch.Tensor, scale: torch.Tensor,
+                 obj: torch.Tensor, *, res: float, num_rots: int,
+                 grid_shape: Tuple[int, int, int],
+                 corners: Optional[torch.Tensor] = None,
+                 valid: Optional[torch.Tensor] = None):
+    """(grid_obj (gx, gy, gz), grid_rot (gx, gy, gz, 2), grid_scale (gx, gy,
+    gz, 3)): the 6-channel splat's raw sums, rot and scale normalized by
+    ``grid_obj + 1e-7`` as the JAX package does outside its kernel
+    (upstream ``hv_cuda_kernel.cu:100-119``). Corners and dims as
+    :func:`hough_voting_obj`."""
+    if valid is not None:
+        valid = valid.to(points.dtype)
+    if corners is None:
+        corners = compute_corners(points, valid)
+    dims = clipped_grid_dims(corners, res, grid_shape)
+    raw = hv_splat6(points, xyz, scale, obj, corners[0], dims, res,
+                    num_rots=num_rots, grid_shape=grid_shape, valid=valid)
+    denom = raw[..., 0:1] + 1e-7
+    return raw[..., 0], raw[..., 1:3] / denom, raw[..., 3:6] / denom

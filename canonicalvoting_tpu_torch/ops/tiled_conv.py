@@ -3,8 +3,10 @@ plain PyTorch versions.
 
 Counterparts of ``canonicalvoting_tpu/ops/pallas/tiled_conv.py``:
 ``tiled_conv3d`` (odd-k submanifold Conv3D with a fused epilogue),
-``tiled_down2`` (stride-2 k=2 conv) and ``tiled_up2`` (transposed stride-2
-k=2 conv with the U-Net skip concat fused in). The kernels are in
+``tiled_conv3d_prefolded`` (its ``prefolded=True`` stem mode, over the
+grid :func:`fold_dydz` builds), ``tiled_down2`` (stride-2 k=2 conv) and
+``tiled_up2`` (transposed stride-2 k=2 conv with the U-Net skip concat fused
+in). The kernels are in
 ``csrc/tiled_conv.cu``; its header says what bounds them on the H100 and how
 they are built.
 
@@ -27,6 +29,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from canonicalvoting_tpu_torch.data.dense_prep import MX, MY, MZ
 from canonicalvoting_tpu_torch.ops.cuda_build import check, library
@@ -36,6 +39,8 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "tiled_conv3d_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I,
                             _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P],
+    "tiled_conv3d_prefolded_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I,
+                                      _I, _I, _I, _P, _P, _P, _I, _P, _P],
     "tiled_down2_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I,
                            _I, _I, _I, _P, _P, _P, _I, _P, _P],
     "tiled_up2_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
@@ -107,6 +112,53 @@ def _check_tiles(tiles: torch.Tensor, x: torch.Tensor, dims, tile_shape) -> None
 
 
 # ---------------------------------------------------------------------------
+# the stem's (dy, dz) fold (an XLA pass in the JAX package: plain torch ops)
+
+# folded channels are padded to a multiple of 8 (75 -> 80 for the 3-channel
+# k=5 stem): the kernel's 16-byte operand loads then stay aligned and every
+# 8-channel load lies inside one x tap. The JAX package pads to 128 lanes, a
+# TPU layout the port does not keep.
+FOLD_ALIGN = 8
+
+
+def folded_channels(cin: int, k: int) -> int:
+    return -(-cin * k * k // FOLD_ALIGN) * FOLD_ALIGN
+
+
+def fold_dydz(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(dy, dz) tap fold of a margined (Xm, Ym, Zm, C) grid for the
+    prefolded stem: returns (Xm, Ym, Zm, folded_channels(C, k)) where channel
+    ``c*k*k + dz*k + dy`` holds channel c of x shifted by (dy - h, dz - h)
+    in (y, z), channel-major as the JAX package's ``fold_dydz``
+    (``ops/pallas/tiled_conv.py:372``); the padding channels are zero. Reads
+    past the grid's border are zeros; interior cells read at most h margin
+    rows, which are zero. Built once per scene and shared by every model
+    that runs over it, in one strided copy: the output is written once, in
+    its own order."""
+    Xm, Ym, Zm, C = x.shape
+    h = k // 2
+    n = C * k * k
+    xp = F.pad(x, (0, 0, h, h, h, h)).contiguous()  # (Xm, Ym + 2h, Zm + 2h, C)
+    sx, sy, sz, sc = xp.stride()
+    # window[x, y, z, c, dz, dy] = xp[x, y + dy, z + dz, c]
+    window = xp.as_strided((Xm, Ym, Zm, C, k, k), (sx, sy, sz, sc, sz, sy))
+    out = x.new_empty((Xm, Ym, Zm, folded_channels(C, k)))
+    out[..., :n].view(Xm, Ym, Zm, C, k, k).copy_(window)
+    out[..., n:] = 0
+    return out
+
+
+def fold_stem_weights(w: torch.Tensor, k: int, cf: int) -> torch.Tensor:
+    """(k^3, Cin, Cout) x-fastest kernel -> (k, cf, Cout): per x offset dx,
+    rows (c, dz, dy) in fold_dydz's channel order (the JAX package's
+    ``_fold_w`` prefolded branch), zero rows up to cf."""
+    cin, cout = w.shape[1], w.shape[2]
+    wk = w.reshape(k, k, k, cin, cout).permute(2, 3, 0, 1, 4)  # (dx, c, dz, dy, co)
+    wk = wk.reshape(k, k * k * cin, cout)
+    return F.pad(wk, (0, 0, 0, cf - k * k * cin))
+
+
+# ---------------------------------------------------------------------------
 # plain versions (the CPU path, and the reference the card compares against)
 
 def _row_cells(tiles: torch.Tensor, tile_shape) -> torch.Tensor:
@@ -174,6 +226,27 @@ def tiled_conv3d_plain(x, w, tiles, *, tile_shape, kernel_size, scale=None,
     acc = _epilogue(acc, scale, bias, occ_rows, res_rows, relu_out)
     out = torch.zeros(x.shape[:3] + (cout,), dtype=x.dtype, device=x.device)
     out.view(-1, cout)[oflat] = acc.to(x.dtype)
+    return out
+
+
+def tiled_conv3d_prefolded_plain(xf, w, tiles, *, tile_shape, kernel_size,
+                                 scale=None, bias=None, occ=None,
+                                 relu_out=False):
+    k = kernel_size
+    h = k // 2
+    cout = w.shape[2]
+    wf = fold_stem_weights(_wt(w, xf), k, xf.shape[3])
+    c = _row_cells(tiles, tile_shape)
+    xff = xf.reshape(-1, xf.shape[-1]).float()
+    acc = torch.zeros(c.shape[0], cout, dtype=torch.float32, device=xf.device)
+    for dx in range(k):  # five x[cell + dx] @ W[dx] products
+        d = torch.tensor([dx - h, 0, 0], device=xf.device)
+        acc += xff[_flat(c + d, xf.shape)] @ wf[dx]
+    oflat = _flat(c, xf.shape)
+    occ_rows = None if occ is None else occ.reshape(-1)[oflat].float()
+    acc = _epilogue(acc, scale, bias, occ_rows, None, relu_out)
+    out = torch.zeros(xf.shape[:3] + (cout,), dtype=xf.dtype, device=xf.device)
+    out.view(-1, cout)[oflat] = acc.to(xf.dtype)
     return out
 
 
@@ -274,6 +347,47 @@ def tiled_conv3d(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
 
 
 tiled_conv3d.launches = 0
+
+
+def tiled_conv3d_prefolded(xf: torch.Tensor, w: torch.Tensor,
+                           tiles: torch.Tensor, *,
+                           tile_shape: Tuple[int, int, int],
+                           kernel_size: int, scale=None, bias=None, occ=None,
+                           relu_out: bool = False) -> torch.Tensor:
+    """The k-wide stem conv over fold_dydz's grid ``xf``: only the k
+    x-offsets remain as taps, ``out = relu?(occ * (sum_dx xf[cell + (dx - h,
+    0, 0)] @ W[dx] * scale + bias))`` over the listed tiles. ``w`` is the
+    unfolded (k^3, Cin, Cout) kernel, folded here (``fold_stem_weights``).
+    Counterpart of the JAX package's ``tiled_conv3d(prefolded=True)``;
+    launches count apart from ``tiled_conv3d``'s."""
+    _check_grid(xf, "xf")
+    k = kernel_size
+    if (k % 2 != 1 or k // 2 > MX or w.shape[0] != k ** 3
+            or xf.shape[3] != folded_channels(w.shape[1], k)):
+        raise ValueError(f"weights {tuple(w.shape)} do not fit a k={k} fold "
+                         f"of {tuple(xf.shape)}")
+    _check_tiles(tiles, xf, _interior(xf.shape), tile_shape)
+    _check_occ(occ, xf.shape[:3])
+    kw = dict(tile_shape=tile_shape, kernel_size=k, scale=scale, bias=bias,
+              occ=occ, relu_out=relu_out)
+    if _route(xf) == "plain":
+        return tiled_conv3d_prefolded_plain(xf, w, tiles, **kw)
+    dev = xf.device
+    cout = w.shape[2]
+    out = torch.zeros(xf.shape[:3] + (cout,), dtype=xf.dtype, device=dev)
+    wf = fold_stem_weights(_like(w, xf), k, xf.shape[3]).contiguous()
+    sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
+    cells = tile_shape[0] * tile_shape[1] * tile_shape[2]
+    rc = _launcher("tiled_conv3d_prefolded_launch")(
+        xf.data_ptr(), xf.shape[3], *xf.shape[:3], wf.data_ptr(), k, cout,
+        tiles.data_ptr(), tiles.shape[0] * cells, *tile_shape, _ptr(sc),
+        _ptr(bi), _ptr(oc), int(relu_out), out.data_ptr(), _stream())
+    check(rc, "tiled_conv3d_prefolded")
+    tiled_conv3d_prefolded.launches += 1
+    return out
+
+
+tiled_conv3d_prefolded.launches = 0
 
 
 def tiled_down2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,

@@ -23,11 +23,15 @@ port does, so they copy without permutation; k=1 kernels are stored
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from canonicalvoting_tpu_torch.data.geometry import NAME2CATNAME
+from canonicalvoting_tpu_torch.models.dense_unet import DenseMinkUNet
 
 
 def _leaves(tree: Dict, prefix: str = ""):
@@ -38,15 +42,20 @@ def _leaves(tree: Dict, prefix: str = ""):
             yield prefix + k, v
 
 
-def from_jax_variables(model: torch.nn.Module, params: Dict,
-                       batch_stats: Dict) -> torch.nn.Module:
-    """Copy a JAX variables tree (numpy arrays) into ``model``; every
-    parameter and buffer of the model must be covered, and nothing else."""
+def jax_state_dict(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX variables tree (numpy arrays) as the port's float32 state dict."""
     state = {name: torch.from_numpy(np.array(v, np.float32))
              for name, v in _leaves(params)}
     state.update({name: torch.from_numpy(np.array(v, np.float32))
                   for name, v in _leaves(batch_stats)})
-    model.load_state_dict(state, strict=True)
+    return state
+
+
+def from_jax_variables(model: torch.nn.Module, params: Dict,
+                       batch_stats: Dict) -> torch.nn.Module:
+    """Copy a JAX variables tree (numpy arrays) into ``model``; every
+    parameter and buffer of the model must be covered, and nothing else."""
+    model.load_state_dict(jax_state_dict(params, batch_stats), strict=True)
     return model
 
 
@@ -99,3 +108,24 @@ def load_pth(model: torch.nn.Module, path: str) -> torch.nn.Module:
     """Load an upstream ``.pth`` checkpoint into ``model``."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return from_jax_variables(model, *convert_state_dict(sd))
+
+
+def category_state_dicts(model, categories: List[str],
+                         pretrained_dir: Optional[str] = None
+                         ) -> List[Dict[str, torch.Tensor]]:
+    """State dicts of the per-category models of ``model``'s plan, in
+    ``categories`` order: the upstream ``<wnid>.pth`` of each category in
+    ``pretrained_dir`` (named through ``NAME2CATNAME`` as the upstream
+    ``eval_separate.py`` names them), or, where there is none, random
+    weights from ``torch.manual_seed(index)``."""
+    catname2name = {v: k for k, v in NAME2CATNAME.items()}
+    out = []
+    for i, category in enumerate(categories):
+        torch.manual_seed(i)
+        m = DenseMinkUNet(**model.config())
+        path = (None if pretrained_dir is None else
+                os.path.join(pretrained_dir, f"{catname2name[category]}.pth"))
+        if path is not None and os.path.exists(path):
+            load_pth(m, path)
+        out.append({k: v.detach() for k, v in m.state_dict().items()})
+    return out

@@ -3,17 +3,28 @@
     python3 chip_smoke.py
 
 Phase 0 builds the CUDA kernels from csrc/ and names the card.
-Phase 1 runs every kernel at every configuration the main path gives it
-(recorded from a forward pass on a ScanNet-scale synthetic scene, in
-bfloat16), holds it against its plain PyTorch version, and times kernel,
-plain version, the library call computing the same function where there is
-one, and the card's bound for the work.
+Phase 1 runs every kernel at every configuration the paths give it
+(recorded from a pass on a ScanNet-scale synthetic scene, in bfloat16: the
+joint path, the separate path's prefolded stem, the non-lazy tail's
+6-channel splat), holds it against its plain PyTorch version, and times
+kernel, plain version, the library call computing the same function where
+there is one, and the card's bound for the work.
 Phase 2 drives the joint inference path at full MinkUNet34C width on three
 synthetic scenes (random weights from a seed; the tail decodes planted head
 rows, so every scene carries boxes) and checks from the launch counters that
 the path ran on the kernels.
 Phase 3 runs the same path with the plain versions forced, on one scene,
 and compares.
+The separate phase drives the 9-category separate evaluator (nine
+MinkUNet34C(3, 8), prefold stem, lazy rot/scale) on two of those scenes,
+checks the exact launch counts and that each planted category finds its
+box, then reruns one scene with two categories on the plain versions.
+The stem phase times the separate path's shared grids and nine backbones
+with the prefolded stem and with the tiled k=5 stem, and compares their
+head rows.
+The non-lazy phase runs the joint path and the separate evaluator with
+lazy_rot_scale=False (the 6-channel splat) against their lazy paths, and
+the separate evaluator with group_size=2 against group_size=1.
 
 The last two lines are the kernels' summary and the status line. The script
 exits non-zero, printing neither, if there is no CUDA device, if the port is
@@ -23,6 +34,7 @@ missing, or if any phase fails.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -42,15 +54,26 @@ SPLAT_REL_TOL = 1e-4
 # magnitude
 HEAD_REL_TOL = 1e-2
 PER_SCENE = {"tiled_conv3d": 47, "tiled_down2": 4, "tiled_up2": 4}
+# one separate scene: 9 categories x (46 k=3 convs, the prefolded stem, 4
+# downs, 4 ups, one objectness splat)
+SEPARATE_PER_SCENE = {"tiled_conv3d": 9 * 46, "tiled_conv3d_prefolded": 9,
+                      "tiled_down2": 36, "tiled_up2": 36, "hv_splat": 9,
+                      "hv_splat6": 0}
+N_SEPARATE_SCENES = 2
 SOURCES = {
     "tiled_conv3d": ("canonicalvoting_tpu_torch/csrc/tiled_conv.cu",
                      "canonicalvoting_tpu/ops/pallas/tiled_conv.py:444"),
+    "tiled_conv3d_prefolded": (
+        "canonicalvoting_tpu_torch/csrc/tiled_conv.cu",
+        "canonicalvoting_tpu/ops/pallas/tiled_conv.py:444 (prefolded=True)"),
     "tiled_down2": ("canonicalvoting_tpu_torch/csrc/tiled_conv.cu",
                     "canonicalvoting_tpu/ops/pallas/tiled_conv.py:1270"),
     "tiled_up2": ("canonicalvoting_tpu_torch/csrc/tiled_conv.cu",
                   "canonicalvoting_tpu/ops/pallas/tiled_conv.py:1609"),
     "hv_splat": ("canonicalvoting_tpu_torch/csrc/hv_splat.cu",
                  "canonicalvoting_tpu/ops/pallas/hv_splat.py:195"),
+    "hv_splat6": ("canonicalvoting_tpu_torch/csrc/hv_splat.cu",
+                  "canonicalvoting_tpu/ops/pallas/hv_splat.py:195 (channels=6)"),
 }
 
 
@@ -98,6 +121,47 @@ def build_pipeline():
                              cap_multiple=4096, device="cuda")
 
 
+def build_separate(**kw):
+    from canonicalvoting_tpu_torch.decode.peeling import PeelConfig
+    from canonicalvoting_tpu_torch.eval.separate import (
+        ALL_CATEGORIES, SeparateDetectionPipeline)
+    from canonicalvoting_tpu_torch.models import DenseMinkUNet34C
+    from canonicalvoting_tpu_torch.utils.weights import category_state_dicts
+
+    model = DenseMinkUNet34C(3, 8)
+    cats = kw.pop("categories", ALL_CATEGORIES)
+    pipe = SeparateDetectionPipeline(
+        model=model, categories=cats, res=RES, num_rots=NUM_ROTS,
+        peel=PeelConfig(res=RES, max_boxes=64, max_iters=96,
+                        elimination_inclusive=False), device="cuda", **kw)
+    # random weights, torch.manual_seed(c) for category c
+    pipe.set_state_dicts(category_state_dicts(model, cats))
+    return pipe
+
+
+def quantize(scene):
+    from canonicalvoting_tpu_torch.ops.voxelize import sparse_quantize
+
+    coords, idx = sparse_quantize(scene.points, RES)
+    return coords, scene.rgb[idx]
+
+
+def separate_rows(scene, args, n_categories):
+    """Planted (C, cap, 8) head rows: category c gets the confident points
+    of the scene's class-c boxes (the category order is the class order)."""
+    import numpy as np
+
+    from canonicalvoting_tpu_torch.data.synthetic import (
+        encode_separate_head_rows, perfect_predictions)
+
+    valid = args.valid.cpu().numpy() > 0
+    points_w = args.coords_w.cpu().numpy()[valid]
+    xyz, scl, prob, cls = perfect_predictions(scene, points_w)
+    return np.stack([encode_separate_head_rows(
+        points_w, xyz, scl, (prob > 0.5) & (cls == c), len(valid))
+        for c in range(n_categories)])
+
+
 def planted_rows(scene, args):
     import numpy as np
     import torch
@@ -127,12 +191,23 @@ def patched(module, **fns):
 
 
 def counters():
-    from canonicalvoting_tpu_torch.ops.hv_splat import hv_splat
+    from canonicalvoting_tpu_torch.ops.hv_splat import hv_splat, hv_splat6
     from canonicalvoting_tpu_torch.ops.tiled_conv import (
-        tiled_conv3d, tiled_down2, tiled_up2)
+        tiled_conv3d, tiled_conv3d_prefolded, tiled_down2, tiled_up2)
 
-    return {"tiled_conv3d": tiled_conv3d, "tiled_down2": tiled_down2,
-            "tiled_up2": tiled_up2, "hv_splat": hv_splat}
+    return {"tiled_conv3d": tiled_conv3d,
+            "tiled_conv3d_prefolded": tiled_conv3d_prefolded,
+            "tiled_down2": tiled_down2, "tiled_up2": tiled_up2,
+            "hv_splat": hv_splat, "hv_splat6": hv_splat6}
+
+
+def reset_counters():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {n: fn.launches for n, fn in counters().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -156,38 +231,51 @@ def phase0():
 # ---------------------------------------------------------------------------
 # phase 1
 
-def record_calls(pipe, args, rows):
-    """{config: record} of every kernel call one scene's pass makes."""
+def recorder(records, module, name):
+    """A stand-in for ``module.name`` that records each call's
+    configuration, arguments and count per scene, then calls it."""
+    f = getattr(module, name)
+
+    def rec(*a, **kw):
+        if name.startswith("hv_splat"):
+            key = (name, tuple(a[0].shape), kw["grid_shape"])
+        else:
+            res = kw.get("residual")
+            kind = ("none" if res is None else
+                    f"1x1<-{res.shape[3]}" if kw.get("res_w") is not None
+                    else "plain")
+            key = (name, tuple(a[0].shape[3:]), tuple(a[1].shape),
+                   kw["tile_shape"], int(a[2].shape[0]), kind,
+                   kw.get("skip_c", 0))
+        r = records.setdefault(key, {"name": name, "args": a, "kw": kw,
+                                     "count": 0})
+        r["count"] += 1
+        return f(*a, **kw)
+    return rec
+
+
+def record_calls(pipe, sep, args, rows, sep_args):
+    """{config: record} of every kernel call one scene's passes make: the
+    joint path, the separate path's prefolded stem (its other calls have
+    the joint path's configurations) and the non-lazy tail's splat."""
     import canonicalvoting_tpu_torch.models.dense_unet as du
     import canonicalvoting_tpu_torch.ops.hough_voting as hv
 
     records = {}
-
-    def recorder(module, name):
-        f = getattr(module, name)
-
-        def rec(*a, **kw):
-            if name == "hv_splat":
-                key = (name, tuple(a[0].shape), kw["grid_shape"])
-            else:
-                res = kw.get("residual")
-                kind = ("none" if res is None else
-                        f"1x1<-{res.shape[3]}" if kw.get("res_w") is not None
-                        else "plain")
-                key = (name, tuple(a[0].shape[3:]), tuple(a[1].shape),
-                       kw["tile_shape"], int(a[2].shape[0]), kind,
-                       kw.get("skip_c", 0))
-            r = records.setdefault(key, {"name": name, "args": a, "kw": kw,
-                                         "count": 0})
-            r["count"] += 1
-            return f(*a, **kw)
-        return rec
-
-    with patched(du, **{n: recorder(du, n) for n in
+    with patched(du, **{n: recorder(records, du, n) for n in
                         ("tiled_conv3d", "tiled_down2", "tiled_up2")}), \
-            patched(hv, hv_splat=recorder(hv, "hv_splat")):
+            patched(hv, hv_splat=recorder(records, hv, "hv_splat")):
         pipe.backbone(args)
         pipe.tail(rows, args.coords_w, args.valid, args.grid_shape)
+    with patched(du, tiled_conv3d_prefolded=recorder(
+            records, du, "tiled_conv3d_prefolded")):
+        sep.backbones(sep_args)
+    pipe.lazy_rot_scale = False
+    try:
+        with patched(hv, hv_splat6=recorder(records, hv, "hv_splat6")):
+            pipe.tail(rows, args.coords_w, args.valid, args.grid_shape)
+    finally:
+        pipe.lazy_rot_scale = True
     return records
 
 
@@ -247,9 +335,44 @@ def conv_bound(r, occ_of):
         {"listed_cells": rows, "occupied_cells": live, "occupied_pairs": pairs}
 
 
-def splat_bound(r):
-    """Point rows in, grid out; f32 ops per vote: ~12 to place it, ~32
-    more to weight its 8 corners when it lands in range."""
+def prefold_bound(r):
+    """(bound_ms, bound_by): the listed cells' x windows of the fold read
+    once at its k*k*Cin channels (the port's padding channels are not
+    charged), outputs, weights and occupancy moved once; against the bf16
+    MACs of the occupied (output, x-tap) pairs, an x tap being occupied when
+    its folded cell holds an occupied (dy, dz) neighbour."""
+    import torch
+    import torch.nn.functional as F
+
+    import canonicalvoting_tpu_torch.ops.tiled_conv as tc
+
+    (xf, w, tiles), kw = r["args"][:3], r["kw"]
+    k = kw["kernel_size"]
+    cells = tc._row_cells(tiles, kw["tile_shape"])
+    occ = kw["occ"]
+    live = occ.reshape(-1)[tc._flat(cells, occ.shape)] > 0
+    occ_fold = F.max_pool3d(occ[None, None].float(), (1, k, k), stride=1,
+                            padding=(0, k // 2, k // 2))[0, 0].reshape(-1)
+    taps = [tc._flat(cells + torch.tensor([dx - k // 2, 0, 0],
+                                          device=cells.device), xf.shape)
+            for dx in range(k)]
+    window = torch.unique(torch.cat(taps))
+    pairs = sum(int((live & (occ_fold[t] > 0)).sum()) for t in taps)
+    el = xf.element_size()
+    cin, cout = k * k * w.shape[1], w.shape[2]
+    nbytes = (window.numel() * cin + cells.shape[0] * cout) * el \
+        + w.numel() * el + cells.shape[0] * 4
+    flops = 2 * pairs * cin * cout
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return ((t_b, "bytes") if t_b >= t_f else (t_f, "operations")), \
+        {"listed_cells": int(cells.shape[0]), "occupied_cells": int(live.sum()),
+         "window_cells": int(window.numel()), "occupied_pairs": pairs}
+
+
+def splat_bound(r, channels=1):
+    """Point rows in, grid out (channels wide); f32 ops per vote: ~12 to
+    place it, ~32 more per channel to weight its 8 corners when it lands in
+    range."""
     import torch
 
     from canonicalvoting_tpu_torch.ops.hv_splat import rotation_table
@@ -269,8 +392,8 @@ def splat_bound(r):
         ok = torch.all((u >= 0) & (u < dims.float() - 1), -1) & live
         in_range += int(ok.sum())
     votes = int(live.sum()) * len(cosv)
-    nbytes = points.shape[0] * 11 * 4 + gx * gy * gz * 4
-    flops = votes * 12 + in_range * 32
+    nbytes = points.shape[0] * 11 * 4 + gx * gy * gz * channels * 4
+    flops = votes * 12 + in_range * 32 * channels
     t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return ((t_b, "bytes") if t_b >= t_f else (t_f, "operations")), in_range
 
@@ -280,11 +403,18 @@ def library_call(r):
     used only as a yardstick here."""
     import torch.nn.functional as F
 
+    import canonicalvoting_tpu_torch.ops.tiled_conv as tc
+
     name, a = r["name"], r["args"]
-    if name == "hv_splat":
+    if name.startswith("hv_splat"):
         return None
     x, w = a[0], a[1]
     xs = x.permute(3, 0, 1, 2)[None].contiguous()
+    if name == "tiled_conv3d_prefolded":  # the (5, 1, 1) conv over the fold
+        k = r["kw"]["kernel_size"]
+        wf = tc.fold_stem_weights(w.to(x.dtype), k, x.shape[3])
+        wc = wf.permute(2, 1, 0)[..., None, None].contiguous()
+        return lambda: F.conv3d(xs, wc, padding=(k // 2, 0, 0))
     if name == "tiled_up2":
         wt = w.reshape(2, 2, 2, w.shape[1], w.shape[2]).permute(3, 4, 2, 1, 0)
         wt = wt.contiguous().to(x.dtype)
@@ -309,11 +439,18 @@ def phase1(pipe, scene):
     import canonicalvoting_tpu_torch.ops.tiled_conv as tc
 
     plain = {"tiled_conv3d": tc.tiled_conv3d_plain,
+             "tiled_conv3d_prefolded": tc.tiled_conv3d_prefolded_plain,
              "tiled_down2": tc.tiled_down2_plain,
-             "tiled_up2": tc.tiled_up2_plain, "hv_splat": hs.hv_splat_plain}
+             "tiled_up2": tc.tiled_up2_plain, "hv_splat": hs.hv_splat_plain,
+             "hv_splat6": functools.partial(hs.hv_splat_plain, channels=6)}
     kern = counters()
     args = pipe.prepare_scene(scene.points, scene.rgb)
-    records = record_calls(pipe, args, planted_rows(scene, args))
+    # the separate path's stem calls; the pipeline is dropped with the
+    # records, so that phase 2 holds the joint path's memory alone
+    sep = build_separate()
+    records = record_calls(pipe, sep, args, planted_rows(scene, args),
+                           sep.prepare_quantized(*quantize(scene)))
+    del sep
     occ_of = {tuple(r["kw"]["occ"].shape): r["kw"]["occ"]
               for r in records.values() if r["name"] == "tiled_conv3d"}
     summary = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
@@ -322,17 +459,32 @@ def phase1(pipe, scene):
     failures = []
     for key, r in records.items():
         name, a, kw = r["name"], r["args"], r["kw"]
-        err, scale = rel_err(kern[name](*a, **kw), plain[name](*a, **kw))
-        tol = (SPLAT_REL_TOL if name == "hv_splat" else CONV_REL_TOL) * scale
-        if not err <= tol:
-            failures.append((key, err, tol))
+        got, want = kern[name](*a, **kw), plain[name](*a, **kw)
         extra = {}
+        if name == "hv_splat6":  # each channel within 1e-4 of its own peak
+            errs = [rel_err(got[..., c], want[..., c]) for c in range(6)]
+            err, scale = max(e for e, _ in errs), max(m for _, m in errs)
+            tol = SPLAT_REL_TOL * scale
+            extra["channels"] = [{"max_abs_err": e, "ref_max": m,
+                                  "tol": SPLAT_REL_TOL * m} for e, m in errs]
+            if not all(e <= SPLAT_REL_TOL * m for e, m in errs):
+                failures.append((key, errs))
+        else:
+            err, scale = rel_err(got, want)
+            tol = (SPLAT_REL_TOL if name == "hv_splat" else CONV_REL_TOL) * scale
+            if not err <= tol:
+                failures.append((key, err, tol))
+        del got, want
         ms = time_ms(lambda: kern[name](*a, **kw), 5)
         plain_ms = time_ms(lambda: plain[name](*a, **kw), 2)
         lib = library_call(r)
         lib_ms = time_ms(lib, 3) if lib is not None else None
-        if name == "hv_splat":
-            (bound_ms, bound_by), extra["in_range_votes"] = splat_bound(r)
+        if name.startswith("hv_splat"):
+            (bound_ms, bound_by), extra["in_range_votes"] = splat_bound(
+                r, 6 if name == "hv_splat6" else 1)
+        elif name == "tiled_conv3d_prefolded":
+            (bound_ms, bound_by), work = prefold_bound(r)
+            extra.update(work)
         else:
             (bound_ms, bound_by), work = conv_bound(r, occ_of)
             extra.update(work)
@@ -375,7 +527,7 @@ def stage_times(pipe, scene):
     from canonicalvoting_tpu_torch.decode.peeling import peel_boxes
     from canonicalvoting_tpu_torch.eval.pipeline import slice_joint_heads
     from canonicalvoting_tpu_torch.ops.hough_voting import (
-        compute_corners, grid_dims_from_corners, hough_voting_obj,
+        clipped_grid_dims, compute_corners, hough_voting_obj,
         vote_stats_at_cell)
 
     t = {}
@@ -399,9 +551,7 @@ def stage_times(pipe, scene):
     torch.cuda.synchronize()
     t["splat"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    dims = torch.minimum(grid_dims_from_corners(corners, RES),
-                         torch.tensor(args.grid_shape, dtype=torch.int32,
-                                      device=go.device))
+    dims = clipped_grid_dims(corners, RES, args.grid_shape)
     out = peel_boxes(go, args.coords_w, xyz, prob, cls, corners[0], pipe.peel,
                      lambda c: vote_stats_at_cell(
                          args.coords_w, xyz, scale, prob, corners[0], dims,
@@ -425,8 +575,7 @@ def phase2(pipe, scenes):
         run_planted(pipe, a, r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters().values():
-        fn.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     n_boxes = []
     for a, r in zip(prepped, planted):
@@ -434,7 +583,7 @@ def phase2(pipe, scenes):
         n_boxes.append(int(res["n_boxes"]))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {n: fn.launches for n, fn in counters().items()}
+    launches = read_counters()
     peak = torch.cuda.max_memory_allocated()
     rows_ok = bool(torch.isfinite(out).all()) and out.shape[1] == 64
     stages = [stage_times(pipe, s) for s in scenes]
@@ -490,6 +639,226 @@ def phase3(pipe, args, rows):
         f"head rows differ by {head_err} (limit {HEAD_REL_TOL * head_max})"
 
 
+# ---------------------------------------------------------------------------
+# the separate path
+
+def separate_stage_times(sep, args, rows):
+    """Per-stage ms of one separate scene, synchronizing between stages."""
+    import torch
+
+    from canonicalvoting_tpu_torch.models.dense_unet import shared_scene_grids
+    from canonicalvoting_tpu_torch.ops.tiled_conv import fold_dydz
+
+    t = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = fn()
+        torch.cuda.synchronize()
+        t[name] = (time.perf_counter() - t0) * 1e3
+        return v
+
+    # the scatter grid and occupancy pyramid, then the stem's fold on its own
+    m = sep.plan
+    shared = stage("shared_prep", lambda: shared_scene_grids(
+        args.feats, args.flat, args.valid, args.dense_dims,
+        in_channels=m.in_channels, compute_dtype=m.compute_dtype))
+    shared["x_folded"] = stage("stem_fold", lambda: fold_dydz(
+        shared["x"], m.stem_kernel))
+    stage("backbones", lambda: sep.backbones(args, shared))
+    del shared
+    heads = torch.as_tensor(rows, device=args.valid.device)
+    votes = stage("splats", lambda: sep.vote(heads, args))
+    out = stage("batched_peel", lambda: sep.peel_votes(votes, args))
+    stage("nms", lambda: sep.postprocess(out))
+    return t
+
+
+def phase_separate(sep, scenes):
+    """Two scenes through the 9-category evaluator: exact launch counts,
+    each planted category finds its box and no other category finds one,
+    then one scene with two categories on the plain versions."""
+    import numpy as np
+    import torch
+
+    import canonicalvoting_tpu_torch.models.dense_unet as du
+    import canonicalvoting_tpu_torch.ops.hough_voting as hv
+    import canonicalvoting_tpu_torch.ops.hv_splat as hs
+    import canonicalvoting_tpu_torch.ops.tiled_conv as tc
+
+    scenes = scenes[:N_SEPARATE_SCENES]
+    C = len(sep.categories)
+    prepped = [sep.prepare_quantized(*quantize(s)) for s in scenes]
+    planted = [separate_rows(s, a, C) for s, a in zip(scenes, prepped)]
+    for a, r in zip(prepped, planted):  # warm-up
+        sep.postprocess(sep.run_scene(a, planted=r))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    outs = [sep.run_scene(a, planted=r) for a, r in zip(prepped, planted)]
+    dets = [sep.postprocess(o) for o in outs]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    stages = [separate_stage_times(sep, a, r) for a, r in zip(prepped, planted)]
+    n_boxes = [o["n_boxes"].tolist() for o in outs]
+    want = [[sum(b.class_idx == c for b in s.boxes) for c in range(C)]
+            for s in scenes]
+    emit({"phase": "separate", "scenes": len(scenes), "categories": C,
+          "scenes_per_s": len(scenes) / elapsed, "n_boxes": n_boxes,
+          "planted_boxes": want, "detections": [len(d) for d in dets],
+          "launches": launches,
+          "stage_ms": {k: float(np.median([s[k] for s in stages]))
+                       for k in stages[0]},
+          "peak_mem_gib": peak / 2 ** 30})
+    for n, per in SEPARATE_PER_SCENE.items():
+        assert launches[n] == per * len(scenes), (n, launches[n])
+    for got, exp in zip(n_boxes, want):
+        for c in range(C):
+            assert (got[c] >= 1) if exp[c] else (got[c] == 0), (n_boxes, want)
+
+    # one scene, two categories, on the plain versions
+    sep2 = build_separate(categories=sep.categories[:2])
+    a, r = prepped[0], planted[0][:2]
+    heads_k = sep2.backbones(a)
+    out_k = sep2.tail(torch.as_tensor(r, device=heads_k.device), a)
+    with patched(du, tiled_conv3d=tc.tiled_conv3d_plain,
+                 tiled_conv3d_prefolded=tc.tiled_conv3d_prefolded_plain,
+                 tiled_down2=tc.tiled_down2_plain,
+                 tiled_up2=tc.tiled_up2_plain), \
+            patched(hv, hv_splat=hs.hv_splat_plain):
+        heads_p = sep2.backbones(a)
+        out_p = sep2.tail(torch.as_tensor(r, device=heads_p.device), a)
+    torch.cuda.synchronize()
+    n_k, n_p = out_k["n_boxes"].tolist(), out_p["n_boxes"].tolist()
+    head_err = float((heads_k - heads_p).abs().max())
+    head_max = float(heads_p.abs().max())
+    box_err = max([float((out_k["boxes"][c, :n] - out_p["boxes"][c, :n])
+                         .abs().max()) for c, n in enumerate(n_k) if n] + [0.0])
+    emit({"phase": "separate_plain", "categories": 2, "n_boxes": [n_k, n_p],
+          "head_rows_max_abs_err": head_err, "head_rows_max": head_max,
+          "head_rows_tol": HEAD_REL_TOL * head_max, "box_max_abs_err": box_err})
+    assert n_k == n_p and sum(n_k) >= 1, "box counts differ"
+    assert torch.equal(out_k["classes"], out_p["classes"]), "classes differ"
+    assert box_err <= RES + 1e-4, f"boxes differ by {box_err}"
+    assert head_err <= HEAD_REL_TOL * head_max, \
+        f"head rows differ by {head_err} (limit {HEAD_REL_TOL * head_max})"
+    return launches
+
+
+def phase_stem(sep, scenes):
+    """The prefolded stem against the tiled k=5 stem, end to end: the
+    scene's shared grids (with the fold, or without) and the nine backbones,
+    ms per scene, alternated on each scene; their head rows agree as phase
+    3's do."""
+    import numpy as np
+    import torch
+
+    def backbones_ms(s, a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        heads = s.backbones(a)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, heads
+
+    sep_t = build_separate(stem_impl="tiled")
+    prepped = [sep.prepare_quantized(*quantize(s))
+               for s in scenes[:N_SEPARATE_SCENES]]
+    sep_t.backbones(prepped[0])  # warm-up
+    ms, heads = {"prefold": [], "tiled": []}, {}
+    for a in prepped:
+        for name, s in (("prefold", sep), ("tiled", sep_t)):
+            t, heads[name] = backbones_ms(s, a)
+            ms[name].append(t)
+    head_err = float((heads["prefold"] - heads["tiled"]).abs().max())
+    head_max = float(heads["tiled"].abs().max())
+    emit({"phase": "stem", "shared_prep_and_backbones_ms": ms,
+          "median_ms": {k: float(np.median(v)) for k, v in ms.items()},
+          "head_rows_max_abs_err": head_err, "head_rows_max": head_max,
+          "head_rows_tol": HEAD_REL_TOL * head_max})
+    assert head_err <= HEAD_REL_TOL * head_max, \
+        f"stems' head rows differ by {head_err} (limit {HEAD_REL_TOL * head_max})"
+
+
+def phase_nonlazy(pipe, sep, scene):
+    """The non-lazy tail (the 6-channel splat and the dense rot/scale
+    grids) against the lazy one, in the joint path and in the separate
+    evaluator, and the separate evaluator with group_size=2 against
+    group_size=1, on one scene each. Returns the two non-lazy runs'
+    launches, each counted from 0."""
+    import torch
+
+    args = pipe.prepare_scene(scene.points, scene.rgb)
+    rows = planted_rows(scene, args)
+    _, lazy, _ = run_planted(pipe, args, rows)
+    pipe.lazy_rot_scale = False
+    try:
+        reset_counters()
+        _, full, _ = run_planted(pipe, args, rows)
+        torch.cuda.synchronize()
+        launches = read_counters()
+    finally:
+        pipe.lazy_rot_scale = True
+    n = int(lazy["n_boxes"])
+    box_err = float((full["boxes"][:n] - lazy["boxes"][:n]).abs().max()) \
+        if n else 0.0
+
+    sargs = sep.prepare_quantized(*quantize(scene))
+    srows = separate_rows(scene, sargs, len(sep.categories))
+    out1 = sep.run_scene(sargs, planted=srows)
+    sep.lazy_rot_scale = False
+    try:
+        reset_counters()
+        sfull = sep.run_scene(sargs, planted=srows)
+        torch.cuda.synchronize()
+        sep_launches = read_counters()
+    finally:
+        sep.lazy_rot_scale = True
+    sn = out1["n_boxes"].tolist()
+    sbox_err = max([float((sfull["boxes"][c, :m] - out1["boxes"][c, :m])
+                          .abs().max()) for c, m in enumerate(sn) if m] + [0.0])
+
+    sep2 = build_separate(group_size=2)
+    heads1, heads2 = sep.backbones(sargs), sep2.backbones(sargs)
+    out2 = sep2.run_scene(sargs, planted=srows)
+    dets1, dets2 = sep.postprocess(out1), sep2.postprocess(out2)
+    head_err = float((heads2 - heads1).abs().max())
+    head_max = float(heads1.abs().max())
+    emit({"phase": "nonlazy", "n_boxes": [n, int(full["n_boxes"])],
+          "box_max_abs_err": box_err, "launches": launches,
+          "separate": {"n_boxes": [sn, sfull["n_boxes"].tolist()],
+                       "box_max_abs_err": sbox_err,
+                       "launches": sep_launches},
+          "grouped": {"n_boxes": [out1["n_boxes"].tolist(),
+                                  out2["n_boxes"].tolist()],
+                      "detections": [len(dets1), len(dets2)],
+                      "head_rows_max_abs_err": head_err,
+                      "head_rows_max": head_max}})
+    assert launches["hv_splat6"] == 1 and launches["hv_splat"] == 0, launches
+    assert n >= 4 and int(full["n_boxes"]) == n, "box counts differ"
+    assert torch.equal(full["classes"][:n], lazy["classes"][:n]), "classes differ"
+    assert box_err <= RES + 1e-4, f"boxes differ by {box_err}"
+    C = len(sep.categories)
+    assert sep_launches["hv_splat6"] == C and sep_launches["hv_splat"] == 0, \
+        sep_launches
+    assert sfull["n_boxes"].tolist() == sn and sum(sn) >= 1, \
+        "separate non-lazy box counts differ"
+    assert torch.equal(sfull["classes"], out1["classes"]), \
+        "separate non-lazy classes differ"
+    assert sbox_err <= RES + 1e-4, f"separate non-lazy boxes differ by {sbox_err}"
+    assert torch.equal(out1["n_boxes"], out2["n_boxes"]), "grouped box counts differ"
+    assert torch.equal(out1["boxes"], out2["boxes"]), "grouped boxes differ"
+    assert [(c, float(s)) for c, _, s in dets1] == \
+        [(c, float(s)) for c, _, s in dets2], "grouped detections differ"
+    assert head_err <= HEAD_REL_TOL * head_max, \
+        f"grouped head rows differ by {head_err} (limit {HEAD_REL_TOL * head_max})"
+    return {k: launches[k] + sep_launches[k] for k in launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -514,10 +883,16 @@ def main() -> int:
     smi = phase0()
     pipe = build_pipeline()
     scenes = make_scenes()
+    # built on first use, after the joint phases, so that phase 2 measures
+    # the joint path alone
+    sep = functools.cache(build_separate)
     done = {}
     phases = (("phase1", lambda: phase1(pipe, scenes[0])),
               ("phase2", lambda: phase2(pipe, scenes)),
-              ("phase3", lambda: phase3(pipe, *done["phase2"][1:])))
+              ("phase3", lambda: phase3(pipe, *done["phase2"][1:])),
+              ("separate", lambda: phase_separate(sep(), scenes)),
+              ("stem", lambda: phase_stem(sep(), scenes)),
+              ("nonlazy", lambda: phase_nonlazy(pipe, sep(), scenes[0])))
     for name, run in phases:
         try:
             done[name] = run()
@@ -527,7 +902,11 @@ def main() -> int:
     emit({"total_s": time.perf_counter() - t_start, "failed": failed})
     if failed:
         return 1
-    summary, launches = done["phase1"], done["phase2"][0]
+    # launches: the sum over the runs of the three paths (phase 2, the
+    # separate phase, the non-lazy phase), each counted from 0
+    summary = done["phase1"]
+    launches = {n: done["phase2"][0][n] + done["separate"][n]
+                + done["nonlazy"][n] for n in SOURCES}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         s = summary[name]

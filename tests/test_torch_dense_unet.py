@@ -18,6 +18,19 @@ from canonicalvoting_tpu_torch.utils.weights import from_jax_variables, load_pth
 TINY_PLANES = (8, 16, 32, 32, 32, 32, 16, 16)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test. The suite runs in several worker processes
+    at once, and torch's default of one thread per core in each of them
+    oversubscribes the cores many times over: a test of 0.7 s alone took
+    80 s beside five other workers. The other tests/test_torch_*.py files
+    import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scene(rng, n_pts=250, extent=0.8):
     # the tiny scenes of tests/test_dense_unet.py
     pts = rng.uniform(0, extent, (n_pts, 3)).astype(np.float32)
@@ -62,7 +75,8 @@ def variables_of(model):
 
 
 def _setup(rng, layers, out_ch=10):
-    coords, feats = _scene(rng)
+    # a 32^3 interior: the JAX dense XLA convs on the CPU set this test's time
+    coords, feats = _scene(rng, extent=0.45)
     n = len(coords)
     base, dims = dense_grid_geometry(coords)
     flat = dense_flat_ids(coords, base, dims)

@@ -10,6 +10,7 @@ from canonicalvoting_tpu.ops.voxelize import sparse_quantize as jax_quantize
 from canonicalvoting_tpu_torch.data import dense_prep as tprep
 from canonicalvoting_tpu_torch.data.synthetic import make_scene
 from canonicalvoting_tpu_torch.ops.voxelize import sparse_quantize
+from tests.test_torch_dense_unet import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _tiny_points(rng, n_pts, extent):

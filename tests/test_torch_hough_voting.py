@@ -15,6 +15,7 @@ from canonicalvoting_tpu_torch.ops import hough_voting as thv
 from canonicalvoting_tpu_torch.ops.hv_splat import hv_splat
 
 from tests.reference_impls import hv_forward_numpy_vec
+from tests.test_torch_dense_unet import one_torch_thread  # noqa: F401  (autouse)
 
 jhv = sys.modules["canonicalvoting_tpu.ops.hough_voting"]
 

@@ -17,6 +17,7 @@ from canonicalvoting_tpu_torch.decode.peeling import PeelConfig, peel_boxes
 from canonicalvoting_tpu_torch.ops.hough_voting import vote_stats_at_cell
 
 from tests.test_peeling import _scene_with_boxes
+from tests.test_torch_dense_unet import one_torch_thread  # noqa: F401  (autouse)
 
 jhv = sys.modules["canonicalvoting_tpu.ops.hough_voting"]
 

@@ -15,6 +15,7 @@ from canonicalvoting_tpu.ops.pallas import tiled_conv as jtc
 
 from canonicalvoting_tpu_torch.data.dense_prep import MX, MY, MZ
 from canonicalvoting_tpu_torch.ops import tiled_conv as ttc
+from tests.test_torch_dense_unet import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
