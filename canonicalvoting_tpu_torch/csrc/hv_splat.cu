@@ -1,8 +1,9 @@
 // The vote splat of canonical Hough voting, for sm_90a.
 //
-// Replaces the Pallas TPU kernel hv_splat_pallas of
+// Replaces the Pallas TPU kernels hv_splat_pallas of
 // canonicalvoting_tpu/ops/pallas/hv_splat.py (_kernel), with channels = 1 and
-// channels = 6: for each point and each of num_rots yaw angles, rotate the
+// channels = 6, and hv_splat_windowed (_kernel_windowed), the channels = 1
+// function over per-x-bucket windows (below): for each point and each of num_rots yaw angles, rotate the
 // scaled LCC offset, drop votes that fall outside [0, dims - 1) on any axis,
 // and splat trilinearly onto the 8 surrounding cells of a channel-last
 // (gx, gy, gz, CH) float32 grid. With w the corner weight times obj * valid,
@@ -36,6 +37,58 @@ namespace {
 
 constexpr float kFixedScale = 4294967296.0f;  // 2^32
 
+// Places the vote of point p at the rotation (c, s): false when p is invalid
+// or the vote lands outside [0, dims - 1) on an axis; else its floor cell f,
+// its fractional parts w1 and its weight ob = obj * valid. Every product and
+// sum is rounded on its own (no fused multiply-add), in the plain version's
+// order, so both place each vote identically.
+__device__ __forceinline__ bool place_vote(const float* __restrict__ points,
+                                           const float* __restrict__ xyz,
+                                           const float* __restrict__ scale,
+                                           const float* __restrict__ obj,
+                                           const float* __restrict__ valid, int p, float c,
+                                           float s, const float* __restrict__ corner,
+                                           const int* __restrict__ dims, float res,
+                                           int (&f)[3], float (&w1)[3], float& ob) {
+  ob = obj[p];
+  if (valid != nullptr) {
+    if (!(valid[p] > 0.f)) return false;
+    ob = __fmul_rn(ob, valid[p]);
+  }
+  const float cx = __fmul_rn(xyz[3 * p], scale[3 * p]);
+  const float cy = __fmul_rn(xyz[3 * p + 1], scale[3 * p + 1]);
+  const float cz = __fmul_rn(xyz[3 * p + 2], scale[3 * p + 2]);
+  // offset = -Rot_y(theta) @ corr
+  const float offx = __fadd_rn(__fmul_rn(-c, cx), __fmul_rn(s, cz));
+  const float offy = -cy;
+  const float offz = __fsub_rn(__fmul_rn(-s, cx), __fmul_rn(c, cz));
+  const float u[3] = {
+      __fdiv_rn(__fsub_rn(__fadd_rn(points[3 * p], offx), corner[0]), res),
+      __fdiv_rn(__fsub_rn(__fadd_rn(points[3 * p + 1], offy), corner[1]), res),
+      __fdiv_rn(__fsub_rn(__fadd_rn(points[3 * p + 2], offz), corner[2]), res)};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (!(u[a] >= 0.f && u[a] < (float)dims[a] - 1.f)) return false;
+    const float fl = floorf(u[a]);
+    f[a] = (int)fl;
+    w1[a] = __fsub_rn(u[a], fl);
+  }
+  return true;
+}
+
+// the trilinear weight of corner (bx, by, bz) of a placed vote
+__device__ __forceinline__ float corner_weight(const float (&w1)[3], int bx, int by, int bz,
+                                               float ob) {
+  const float wx = bx ? w1[0] : __fsub_rn(1.f, w1[0]);
+  const float wy = by ? w1[1] : __fsub_rn(1.f, w1[1]);
+  const float wz = bz ? w1[2] : __fsub_rn(1.f, w1[2]);
+  return __fmul_rn(__fmul_rn(__fmul_rn(wx, wy), wz), ob);
+}
+
+__device__ __forceinline__ unsigned long long to_fixed(float w) {
+  return (unsigned long long)__float2ll_rn(w * kFixedScale);
+}
+
 template <int CH>
 __global__ void vote_kernel(const float* __restrict__ points,
                             const float* __restrict__ xyz,
@@ -50,56 +103,141 @@ __global__ void vote_kernel(const float* __restrict__ points,
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)n * num_rots) return;
   const int r = (int)(i / n), p = (int)(i - (long long)r * n);
-  float ob = obj[p];
-  if (valid != nullptr) {
-    if (!(valid[p] > 0.f)) return;
-    ob = __fmul_rn(ob, valid[p]);
-  }
-  // every product and sum rounded on its own (no fused multiply-add), in
-  // the plain version's order, so both place each vote identically
-  const float cx = __fmul_rn(xyz[3 * p], scale[3 * p]);
-  const float cy = __fmul_rn(xyz[3 * p + 1], scale[3 * p + 1]);
-  const float cz = __fmul_rn(xyz[3 * p + 2], scale[3 * p + 2]);
   const float c = cosv[r], s = sinv[r];
-  // offset = -Rot_y(theta) @ corr
-  const float offx = __fadd_rn(__fmul_rn(-c, cx), __fmul_rn(s, cz));
-  const float offy = -cy;
-  const float offz = __fsub_rn(__fmul_rn(-s, cx), __fmul_rn(c, cz));
-  const float u[3] = {
-      __fdiv_rn(__fsub_rn(__fadd_rn(points[3 * p], offx), corner[0]), res),
-      __fdiv_rn(__fsub_rn(__fadd_rn(points[3 * p + 1], offy), corner[1]), res),
-      __fdiv_rn(__fsub_rn(__fadd_rn(points[3 * p + 2], offz), corner[2]), res)};
   int f[3];
-  float w1[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    if (!(u[a] >= 0.f && u[a] < (float)dims[a] - 1.f)) return;
-    const float fl = floorf(u[a]);
-    f[a] = (int)fl;
-    w1[a] = __fsub_rn(u[a], fl);
-  }
+  float w1[3], ob;
+  if (!place_vote(points, xyz, scale, obj, valid, p, c, s, corner, dims, res, f, w1, ob))
+    return;
 #pragma unroll
   for (int bx = 0; bx < 2; ++bx)
 #pragma unroll
     for (int by = 0; by < 2; ++by)
 #pragma unroll
       for (int bz = 0; bz < 2; ++bz) {
-        const float wx = bx ? w1[0] : __fsub_rn(1.f, w1[0]);
-        const float wy = by ? w1[1] : __fsub_rn(1.f, w1[1]);
-        const float wz = bz ? w1[2] : __fsub_rn(1.f, w1[2]);
-        const float w = __fmul_rn(__fmul_rn(__fmul_rn(wx, wy), wz), ob);
+        const float w = corner_weight(w1, bx, by, bz, ob);
         const long long cell = ((long long)(f[0] + bx) * gy + (f[1] + by)) * gz + (f[2] + bz);
         if (CH == 1) {
-          atomicAdd(acc + cell, (unsigned long long)__float2ll_rn(w * kFixedScale));
+          atomicAdd(acc + cell, to_fixed(w));
         } else {
           const float ch[6] = {w, __fmul_rn(w, c), __fmul_rn(w, s),
                                __fmul_rn(w, scale[3 * p]), __fmul_rn(w, scale[3 * p + 1]),
                                __fmul_rn(w, scale[3 * p + 2])};
 #pragma unroll
-          for (int j = 0; j < 6; ++j)
-            atomicAdd(acc + cell * 6 + j, (unsigned long long)__float2ll_rn(ch[j] * kFixedScale));
+          for (int j = 0; j < 6; ++j) atomicAdd(acc + cell * 6 + j, to_fixed(ch[j]));
         }
       }
+}
+
+// ---------------------------------------------------------------------------
+// The windowed objectness splat (hv_splat_windowed). The wrapper sorts the
+// points by the JAX kernel's keys: segment jy * nb + bx holds the points
+// whose votes' floor y plane is jy and whose x cell lies in x bucket bx
+// (xb cells wide), for the points whose rotation radius is at most pad - 2
+// cells; the tail segments gy * nb + jy hold the larger radii. A small
+// point's votes then land in the window of x cells [bx * xb - pad, bx * xb +
+// xb + pad) and y planes jy, jy + 1. One block takes one segment and one z
+// slab of kZSlab cells: it places the segment's votes, adds the corners that
+// fall in its (2, xb + 2 pad, kZSlab) window into shared memory as 64-bit
+// fixed point (2 x 112 x 32 x 8 B = 57 KB at xb = 32, pad = 40: the JAX
+// window's full z extent, 458 KB, does not fit a block), and adds each
+// touched cell to the grid with one global atomic. A corner outside the
+// window is dropped, as the JAX kernel's canvas drops it; with the radius
+// rule none is. The tail's votes go straight to the grid (a full-width pass).
+// Each vote is placed by place_vote and weighted by corner_weight, as in
+// vote_kernel<1>, and integer sums do not depend on order: the grid equals
+// hv_splat's bitwise.
+
+constexpr int kZSlab = 32;
+
+__global__ void windowed_kernel(const float* __restrict__ points,
+                                const float* __restrict__ xyz,
+                                const float* __restrict__ scale,
+                                const float* __restrict__ obj,
+                                const float* __restrict__ valid,
+                                const int* __restrict__ order,
+                                const int* __restrict__ seg_start,
+                                const int* __restrict__ seg_end, int nb, int xb, int pad,
+                                const float* __restrict__ cosv,
+                                const float* __restrict__ sinv, int num_rots,
+                                const float* __restrict__ corner,
+                                const int* __restrict__ dims, float res, int gx, int gy,
+                                int gz, unsigned long long* __restrict__ acc) {
+  extern __shared__ unsigned long long win[];  // [2][wx][kZSlab]
+  const int seg = blockIdx.x, z0 = blockIdx.y * kZSlab;
+  const int start = seg_start[seg], end = seg_end[seg];
+  if (start >= end) return;
+  const int jy = seg / nb, x0 = (seg % nb) * xb - pad, wx = xb + 2 * pad;
+  const int cells = 2 * wx * kZSlab;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) win[i] = 0ull;
+  __syncthreads();
+  const int np = end - start;
+  const long long votes = (long long)np * num_rots;
+  for (long long v = threadIdx.x; v < votes; v += blockDim.x) {
+    const int r = (int)(v / np), p = order[start + (int)(v - (long long)r * np)];
+    const float c = cosv[r], s = sinv[r];
+    // a cheap estimate of the vote's z cell first (within a few ulp of the
+    // placed one): slabs its corners cannot reach skip the exact placement
+    const float uz = (points[3 * p + 2] - s * (xyz[3 * p] * scale[3 * p])
+                      - c * (xyz[3 * p + 2] * scale[3 * p + 2]) - corner[2]) / res;
+    if (uz < (float)(z0 - 2) || uz >= (float)(z0 + kZSlab + 1)) continue;
+    int f[3];
+    float w1[3], ob;
+    if (!place_vote(points, xyz, scale, obj, valid, p, c, s, corner, dims, res, f, w1, ob))
+      continue;
+#pragma unroll
+    for (int bx = 0; bx < 2; ++bx)
+#pragma unroll
+      for (int by = 0; by < 2; ++by)
+#pragma unroll
+        for (int bz = 0; bz < 2; ++bz) {
+          const int lx = f[0] + bx - x0, ly = f[1] + by - jy, lz = f[2] + bz - z0;
+          if (lx < 0 || lx >= wx || ly < 0 || ly > 1 || lz < 0 || lz >= kZSlab) continue;
+          atomicAdd(win + (ly * wx + lx) * kZSlab + lz,
+                    to_fixed(corner_weight(w1, bx, by, bz, ob)));
+        }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const unsigned long long val = win[i];
+    if (val == 0ull) continue;
+    const int lz = i % kZSlab, lx = (i / kZSlab) % wx, ly = i / (kZSlab * wx);
+    const int x = x0 + lx, y = jy + ly, z = z0 + lz;
+    if (x < 0 || x >= gx || y >= gy || z >= gz) continue;
+    atomicAdd(acc + ((long long)x * gy + y) * gz + z, val);
+  }
+}
+
+// the tail: segments [first, last] are contiguous in the sorted order; one
+// thread per (point, rotation) vote, grid-stride, global atomics
+__global__ void tail_kernel(const float* __restrict__ points, const float* __restrict__ xyz,
+                            const float* __restrict__ scale, const float* __restrict__ obj,
+                            const float* __restrict__ valid, const int* __restrict__ order,
+                            const int* __restrict__ seg_start,
+                            const int* __restrict__ seg_end, int first, int last,
+                            const float* __restrict__ cosv,
+                            const float* __restrict__ sinv, int num_rots,
+                            const float* __restrict__ corner,
+                            const int* __restrict__ dims, float res, int gy, int gz,
+                            unsigned long long* __restrict__ acc) {
+  const int start = seg_start[first], np = seg_end[last] - start;
+  const long long votes = (long long)np * num_rots;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < votes;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int r = (int)(i / np), p = order[start + (int)(i - (long long)r * np)];
+    int f[3];
+    float w1[3], ob;
+    if (!place_vote(points, xyz, scale, obj, valid, p, cosv[r], sinv[r], corner, dims, res,
+                    f, w1, ob))
+      continue;
+#pragma unroll
+    for (int bx = 0; bx < 2; ++bx)
+#pragma unroll
+      for (int by = 0; by < 2; ++by)
+#pragma unroll
+        for (int bz = 0; bz < 2; ++bz)
+          atomicAdd(acc + ((long long)(f[0] + bx) * gy + (f[1] + by)) * gz + (f[2] + bz),
+                    to_fixed(corner_weight(w1, bx, by, bz, ob)));
+  }
 }
 
 __global__ void fixed_to_float_kernel(const unsigned long long* __restrict__ acc,
@@ -134,6 +272,46 @@ extern "C" int hv_splat_launch(const float* points, const float* xyz,
   } else if (votes > 0) {
     vote_kernel<6><<<blocks, nt, 0, s>>>(points, xyz, scale, obj, valid, n, cosv, sinv,
                                          num_rots, corner, dims, res, gy, gz, a);
+  }
+  fixed_to_float_kernel<<<(unsigned)((total + nt - 1) / nt), nt, 0, s>>>(
+      static_cast<const unsigned long long*>(acc), total, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// order (n,) int32: the points sorted by segment key; seg_start / seg_end
+// (gy * nb + gy,) int32: each segment's range in that order, the gy * nb
+// windowed segments first, then the gy tail segments; acc and out as
+// hv_splat_launch's, one channel
+extern "C" int hv_splat_windowed_launch(const float* points, const float* xyz,
+                                        const float* scale, const float* obj,
+                                        const float* valid, int n, const int* order,
+                                        const int* seg_start, const int* seg_end,
+                                        int x_bucket, int x_pad, const float* cosv,
+                                        const float* sinv, int num_rots,
+                                        const float* corner, const int* dims, float res,
+                                        int gx, int gy, int gz, void* acc, float* out,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bucket <= 0 || x_pad < 0 || gx % x_bucket != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = gx / x_bucket;
+  const size_t smem = 2 * (size_t)(x_bucket + 2 * x_pad) * kZSlab * sizeof(unsigned long long);
+  cudaError_t e = cudaFuncSetAttribute(windowed_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long total = (long long)gx * gy * gz;
+  e = cudaMemsetAsync(acc, 0, total * sizeof(unsigned long long), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  unsigned long long* a = static_cast<unsigned long long*>(acc);
+  const int nt = 256;
+  if (n > 0) {
+    const dim3 grid(gy * nb, (gz + kZSlab - 1) / kZSlab);
+    windowed_kernel<<<grid, nt, smem, s>>>(points, xyz, scale, obj, valid, order, seg_start,
+                                           seg_end, nb, x_bucket, x_pad, cosv, sinv, num_rots,
+                                           corner, dims, res, gx, gy, gz, a);
+    tail_kernel<<<132 * 8, nt, 0, s>>>(points, xyz, scale, obj, valid, order, seg_start,
+                                       seg_end, gy * nb, gy * nb + gy - 1, cosv, sinv,
+                                       num_rots, corner, dims, res, gy, gz, a);
   }
   fixed_to_float_kernel<<<(unsigned)((total + nt - 1) / nt), nt, 0, s>>>(
       static_cast<const unsigned long long*>(acc), total, out);

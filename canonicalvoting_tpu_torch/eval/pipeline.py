@@ -33,8 +33,8 @@ from canonicalvoting_tpu_torch.decode.peeling import PeelConfig, peel_boxes
 from canonicalvoting_tpu_torch.metrics.ap import nms as nms_host
 from canonicalvoting_tpu_torch.models.dense_unet import STEM_IMPLS
 from canonicalvoting_tpu_torch.ops.hough_voting import (
-    clipped_grid_dims, compute_corners, hough_voting, hough_voting_obj,
-    round_grid_shape, vote_stats_at_cell)
+    check_hv_method, clipped_grid_dims, compute_corners, hough_voting,
+    hough_voting_obj, round_grid_shape, vote_stats_at_cell)
 from canonicalvoting_tpu_torch.ops.voxelize import sparse_quantize
 
 
@@ -127,12 +127,17 @@ class DetectionPipeline:
     # True: the objectness splat, with rot/scale sampled at the peeled cells;
     # False: the 6-channel splat and the dense rot/scale grids
     lazy_rot_scale: bool = True
+    # the objectness splat's route (ops.hough_voting.HV_METHODS): "auto" and
+    # "pallas" the plane splat, "pallas_windowed" the windowed splat; the
+    # non-lazy tail's 6-channel splat has one route
+    hv_method: str = "auto"
     # the model owns its stem ("tiled" or "prefold"); a value here replaces
     # the model's, None keeps it
     stem_impl: Optional[str] = None
     device: str = "cuda"
 
     def __post_init__(self):
+        check_hv_method(self.hv_method)
         if self.peel is None:
             self.peel = PeelConfig(res=self.res)
         self.device = torch.device(self.device)
@@ -183,7 +188,8 @@ class DetectionPipeline:
             go, gr, gs = hough_voting(coords_w, xyz, scale, prob, **kw)
             return peel_boxes(go, coords_w, xyz, prob, class_pred, corner,
                               peel, valid=valid, grid_rot=gr, grid_scale=gs)
-        go = hough_voting_obj(coords_w, xyz, scale, prob, **kw)
+        go = hough_voting_obj(coords_w, xyz, scale, prob, method=self.hv_method,
+                              **kw)
         dims = clipped_grid_dims(corners, self.res, grid_shape)
 
         def rot_scale_fn(cand):

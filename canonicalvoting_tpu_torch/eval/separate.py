@@ -43,8 +43,8 @@ from canonicalvoting_tpu_torch.metrics.ap import nms as nms_host
 from canonicalvoting_tpu_torch.models.dense_unet import (
     DenseMinkUNet, shared_scene_grids)
 from canonicalvoting_tpu_torch.ops.hough_voting import (
-    clipped_grid_dims, compute_corners, hough_voting, hough_voting_obj,
-    vote_stats_at_cell)
+    check_hv_method, clipped_grid_dims, compute_corners, hough_voting,
+    hough_voting_obj, vote_stats_at_cell)
 
 #: category order of the separate evaluator (upstream eval_separate.py:92)
 ALL_CATEGORIES = [
@@ -89,6 +89,8 @@ class SeparateDetectionPipeline:
     # True: objectness splats and rot/scale sampled at the peeled cells;
     # False: 6-channel splats and the dense rot/scale grids
     lazy_rot_scale: bool = True
+    # the objectness splats' route, as DetectionPipeline.hv_method
+    hv_method: str = "auto"
     # the peel's budget exit re-runs the tail (not the backbones) with 4x the
     # iterations and 2x the boxes, at most max_retries times
     retry_on_truncation: bool = True
@@ -100,6 +102,7 @@ class SeparateDetectionPipeline:
             raise NotImplementedError(
                 f"backbone={self.backbone!r}: the gather-form sparse backbone "
                 "is not ported yet; the port runs backbone='dense'")
+        check_hv_method(self.hv_method)
         if self.categories is None:
             self.categories = list(ALL_CATEGORIES)
         if self.peel is None:
@@ -187,7 +190,8 @@ class SeparateDetectionPipeline:
                   grid_shape=args.grid_shape, corners=corners, valid=args.valid)
         per_cat = [(xyz[c], scale[c], prob[c]) for c in range(len(heads))]
         if self.lazy_rot_scale:
-            grids = (torch.stack([hough_voting_obj(args.coords_w, *h, **kw)
+            grids = (torch.stack([hough_voting_obj(args.coords_w, *h,
+                                                   method=self.hv_method, **kw)
                                   for h in per_cat]), None, None)
         else:
             grids = tuple(torch.stack(g) for g in zip(

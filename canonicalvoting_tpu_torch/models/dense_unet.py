@@ -9,9 +9,15 @@ only, with BatchNorm folded into the kernels' epilogues.
 The k=5 stem runs through ``tiled_conv3d`` over the 3-channel grid
 (``stem_impl="tiled"``), or through ``tiled_conv3d_prefolded`` over the
 grid's (dy, dz) fold (``stem_impl="prefold"``, the separate evaluator's
-default). :func:`shared_scene_grids` builds the weight-independent grids of a
-scene once, so several models over one scene share them (``forward(...,
-shared=)``).
+default). The decoder's up-convs into L0 and L1 run ``tiled_up2`` with the
+skip concat fused in (``up_impl="concat"``), or ``tiled_up2_into`` into a
+grid that holds the skip (``up_impl="into"``, the JAX package's
+``CV_UP2V2=1`` route, ``models/dense_unet.py:503-525``, ``:950-980``); its
+layout is ``[skip | conv]``, so the level's first block permutes the input
+rows of its conv1 and downsample kernels at use time, and the stored
+parameters keep the reference layout. :func:`shared_scene_grids` builds
+the weight-independent grids of a scene once, so several models over one
+scene share them (``forward(..., shared=)``).
 
 Parameter and buffer names follow the JAX parameter tree (``conv0p1s1.kernel``,
 ``block1_0.conv1.kernel``, ``bn0.scale``, ``bn0.mean``, ``bntr4.var``,
@@ -21,6 +27,7 @@ without renaming. Kernels are (K, Cin, Cout) with x-fastest offsets.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -30,10 +37,21 @@ from torch import nn
 from canonicalvoting_tpu_torch.data.dense_prep import (
     CONV_KEY_OFF, MX, MY, MZ, STEM_KEY, TRANS_KEYS)
 from canonicalvoting_tpu_torch.ops.tiled_conv import (
-    fold_dydz, tiled_conv3d, tiled_conv3d_prefolded, tiled_down2, tiled_up2)
+    UP_INTO_MAX_CHANNELS, fold_dydz, tiled_conv3d, tiled_conv3d_prefolded,
+    tiled_down2, tiled_up2, tiled_up2_into)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 STEM_IMPLS = ("tiled", "prefold")
+UP_IMPLS = ("concat", "into")
+# the levels whose up-conv runs tiled_up2_into on up_impl="into" (the JAX
+# package's v2_keys, dense_unet.py:510)
+INTO_LEVELS = (0, 1)
+
+
+def default_up_impl() -> str:
+    """"into" when CV_UP2V2 is set, as the JAX package decides
+    (``models/dense_unet.py:509``), else "concat"."""
+    return "into" if os.environ.get("CV_UP2V2") else "concat"
 
 
 class Conv(nn.Module):
@@ -80,20 +98,38 @@ class BasicBlock(nn.Module):
             self.downsample_conv = Conv(cin, planes, 1)
             self.downsample_norm = BatchNorm(planes)
 
-    def forward(self, x, occ, tiles, tile_shape):
+    def forward(self, x, occ, tiles, tile_shape, in_perm=None):
+        """``in_perm`` reorders the input rows of conv1 and the downsample
+        kernel for an input laid out otherwise than the reference (input
+        channel j is reference channel ``in_perm[j]``)."""
         a1, b1 = self.norm1.affine()
         a2, b2 = self.norm2.affine()
-        out = tiled_conv3d(x, self.conv1.kernel, tiles, tile_shape=tile_shape,
+        w1 = self.conv1.kernel
+        if in_perm is not None:
+            w1 = w1[:, in_perm]
+        out = tiled_conv3d(x, w1, tiles, tile_shape=tile_shape,
                            kernel_size=3, scale=a1, bias=b1, occ=occ,
                            relu_out=True)
         rw = rs = rb = None
         if self.downsample:
             rw = self.downsample_conv.kernel[0]
+            if in_perm is not None:
+                rw = rw[in_perm]
             rs, rb = self.downsample_norm.affine()
         return tiled_conv3d(out, self.conv2.kernel, tiles, tile_shape=tile_shape,
                             kernel_size=3, scale=a2, bias=b2, occ=occ,
                             residual=x, res_w=rw, res_scale=rs, res_bias=rb,
                             relu_out=True)
+
+
+def into_dest(skip: torch.Tensor, skip_c: int, cout: int) -> torch.Tensor:
+    """tiled_up2_into's dest: a fresh grid of skip_c + cout channels holding
+    the skip in [0, skip_c) and zeros after. This copy is the concat that
+    the JAX kernel avoids by writing into the skip producer's own donated
+    buffer."""
+    dest = skip.new_zeros(skip.shape[:3] + (skip_c + cout,))
+    dest[..., :skip_c] = skip[..., :skip_c]
+    return dest
 
 
 def occupancy_pyramid(occ0: torch.Tensor, levels: int = 5) -> List[torch.Tensor]:
@@ -148,21 +184,37 @@ class DenseMinkUNet(nn.Module):
     ``tile_shapes`` {key: tile shape} from ``data.dense_prep.level_tiles``.
     Returns (N, Cout) float32 rows, zero at invalid rows. ``shared`` takes
     the scene's :func:`shared_scene_grids` (built here when not given).
-    ``stem_impl`` is "tiled" or "prefold" and changes no parameter.
+    ``stem_impl`` is "tiled" or "prefold", ``up_impl`` "concat" or "into"
+    (None: :func:`default_up_impl`); neither changes a parameter.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2),
                  planes: Sequence[int] = (32, 64, 128, 256, 256, 128, 96, 96),
                  init_dim: int = 32, stem_kernel: int = 5,
-                 compute_dtype: str = "bfloat16", stem_impl: str = "tiled"):
+                 compute_dtype: str = "bfloat16", stem_impl: str = "tiled",
+                 up_impl: Optional[str] = None):
         super().__init__()
         if stem_impl not in STEM_IMPLS:
             raise ValueError(f"stem_impl must be one of {STEM_IMPLS}, got {stem_impl!r}")
+        up_impl = default_up_impl() if up_impl is None else up_impl
+        if up_impl not in UP_IMPLS:
+            raise ValueError(f"up_impl must be one of {UP_IMPLS}, got {up_impl!r}")
+        skip_chs = [init_dim] + list(planes[:3])
+        if up_impl == "into":
+            for lvl in INTO_LEVELS:
+                width = planes[7 - lvl] + skip_chs[lvl]
+                if width > UP_INTO_MAX_CHANNELS:
+                    raise ValueError(
+                        f"up_impl='into' writes [skip | conv] into at most "
+                        f"{UP_INTO_MAX_CHANNELS} channels, as the JAX kernel "
+                        f"does; level {lvl} needs {width} (a grouped net "
+                        f"exceeds it): use up_impl='concat'")
         self.in_channels, self.out_channels = in_channels, out_channels
         self.layers, self.planes = tuple(layers), tuple(planes)
         self.init_dim, self.stem_kernel = init_dim, stem_kernel
         self.compute_dtype, self.stem_impl = compute_dtype, stem_impl
+        self.up_impl = up_impl
         self.conv0p1s1 = Conv(in_channels, init_dim, stem_kernel)
         self.bn0 = BatchNorm(init_dim)
         ch = init_dim
@@ -170,7 +222,6 @@ class DenseMinkUNet(nn.Module):
             self.add_module(f"conv{i + 1}p{1 << i}s2", Conv(ch, ch, 2))
             self.add_module(f"bn{i + 1}", BatchNorm(ch))
             ch = self._add_blocks(f"block{i + 1}", ch, planes[i], layers[i])
-        skip_chs = [init_dim] + list(planes[:3])
         for d in range(4):
             lvl = 3 - d
             self.add_module(f"convtr{4 + d}p{1 << (lvl + 1)}s2",
@@ -186,7 +237,8 @@ class DenseMinkUNet(nn.Module):
                     out_channels=self.out_channels, layers=self.layers,
                     planes=self.planes, init_dim=self.init_dim,
                     stem_kernel=self.stem_kernel,
-                    compute_dtype=self.compute_dtype, stem_impl=self.stem_impl)
+                    compute_dtype=self.compute_dtype, stem_impl=self.stem_impl,
+                    up_impl=self.up_impl)
 
     def _add_blocks(self, name, cin, planes, n) -> int:
         for j in range(n):
@@ -194,9 +246,10 @@ class DenseMinkUNet(nn.Module):
             cin = planes
         return planes
 
-    def _blocks(self, name, n, x, occ, tiles, ts):
+    def _blocks(self, name, n, x, occ, tiles, ts, in_perm=None):
         for j in range(n):
-            x = getattr(self, f"{name}_{j}")(x, occ, tiles, ts)
+            x = getattr(self, f"{name}_{j}")(x, occ, tiles, ts,
+                                             in_perm if j == 0 else None)
         return x
 
     @torch.no_grad()
@@ -245,12 +298,24 @@ class DenseMinkUNet(nn.Module):
             skip = skips[lvl - 1] if lvl >= 1 else out_p1
             a, b = getattr(self, f"bntr{4 + d}").affine()
             up = getattr(self, f"convtr{4 + d}p{1 << (lvl + 1)}s2")
-            x = tiled_up2(x, up.kernel, tiles[key], tile_shape=tile_shapes[key],
-                          scale=a, bias=b, occ=occ[lvl], skip=skip,
-                          skip_c=skip_chs[lvl], relu_out=True)
+            kw = dict(tile_shape=tile_shapes[key], scale=a, bias=b,
+                      occ=occ[lvl], relu_out=True)
+            skc, cout = skip_chs[lvl], self.planes[4 + d]
+            in_perm = None
+            if self.up_impl == "into" and lvl in INTO_LEVELS:
+                x = tiled_up2_into(x, up.kernel, tiles[key],
+                                   dest=into_dest(skip, skc, cout),
+                                   skip_c=skc, **kw)
+                # input channel j holds skip channel j (j < skc, reference
+                # row cout + j) or conv channel j - skc (reference row j - skc)
+                in_perm = torch.cat([torch.arange(cout, cout + skc),
+                                     torch.arange(cout)]).to(x.device)
+            else:
+                x = tiled_up2(x, up.kernel, tiles[key], skip=skip, skip_c=skc,
+                              **kw)
             ck = conv_key(lvl)
             x = self._blocks(f"block{5 + d}", self.layers[4 + d], x, occ[lvl],
-                             tiles[ck], tile_shapes[ck])
+                             tiles[ck], tile_shapes[ck], in_perm)
         # gather the point rows first; the 1x1 head runs on those rows only
         rows = x.reshape(n_cells, x.shape[-1])[flat_idx.long().clamp(0, n_cells - 1)]
         out = (rows @ self.final.kernel[0].to(dt)).float() + self.final.bias

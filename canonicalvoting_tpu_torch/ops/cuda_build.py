@@ -94,6 +94,16 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def launcher(lib: str, argtypes: Dict[str, list], name: str):
+    """``lib<lib>.so``'s launch function ``name``, its ctypes argument types
+    (``argtypes[name]``) bound on first use; it returns a CUDA error code."""
+    fn = getattr(library(lib), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a launcher's nonzero ``cudaGetLastError`` code."""
     if rc != 0:

@@ -17,13 +17,26 @@ trilinearly.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from canonicalvoting_tpu_torch.ops.hv_splat import (
-    TWO_PI, device_scalar, hv_splat, hv_splat6)
+    TWO_PI, device_scalar, hv_splat, hv_splat6, hv_splat_windowed)
+
+#: the splat routes of hough_voting_obj: "auto" and "pallas" run the plane
+#: splat (hv_splat), "pallas_windowed" the windowed one where the grid's x
+#: extent is a multiple of its 32-cell buckets. The JAX package's "xla" and
+#: "pallas_interpret" name its own backends and have no counterpart here.
+HV_METHODS = ("auto", "pallas", "pallas_windowed")
+WINDOW_X_BUCKET = 32
+
+
+def check_hv_method(method: str) -> None:
+    if method not in HV_METHODS:
+        raise ValueError(f"hv_method must be one of {HV_METHODS}, got {method!r}")
 
 
 def compute_corners(points: torch.Tensor,
@@ -108,16 +121,26 @@ def hough_voting_obj(points: torch.Tensor, xyz: torch.Tensor,
                      scale: torch.Tensor, obj: torch.Tensor, *, res: float,
                      num_rots: int, grid_shape: Tuple[int, int, int],
                      corners: Optional[torch.Tensor] = None,
-                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     valid: Optional[torch.Tensor] = None,
+                     method: str = "auto") -> torch.Tensor:
     """The (gx, gy, gz) objectness vote grid; corners default to the valid
-    points' bounding box, and dims are clipped to ``grid_shape``."""
+    points' bounding box, and dims are clipped to ``grid_shape``. ``method``
+    (:data:`HV_METHODS`) picks the splat as the JAX package does
+    (``ops/hough_voting.py:501-542``): "pallas_windowed" runs
+    :func:`hv_splat_windowed` when ``gx % 32 == 0`` and the plane splat
+    otherwise; "auto" and "pallas" run the plane splat. Every route gives
+    the same grid."""
+    check_hv_method(method)
     if valid is not None:
         valid = valid.to(points.dtype)
     if corners is None:
         corners = compute_corners(points, valid)
     dims = clipped_grid_dims(corners, res, grid_shape)
-    return hv_splat(points, xyz, scale, obj, corners[0], dims, res,
-                    num_rots=num_rots, grid_shape=grid_shape, valid=valid)
+    splat = hv_splat
+    if method == "pallas_windowed" and grid_shape[0] % WINDOW_X_BUCKET == 0:
+        splat = functools.partial(hv_splat_windowed, x_bucket=WINDOW_X_BUCKET)
+    return splat(points, xyz, scale, obj, corners[0], dims, res,
+                 num_rots=num_rots, grid_shape=grid_shape, valid=valid)
 
 
 def hough_voting(points: torch.Tensor, xyz: torch.Tensor, scale: torch.Tensor,
@@ -129,7 +152,10 @@ def hough_voting(points: torch.Tensor, xyz: torch.Tensor, scale: torch.Tensor,
     gz, 3)): the 6-channel splat's raw sums, rot and scale normalized by
     ``grid_obj + 1e-7`` as the JAX package does outside its kernel
     (upstream ``hv_cuda_kernel.cu:100-119``). Corners and dims as
-    :func:`hough_voting_obj`."""
+    :func:`hough_voting_obj`. There is no windowed route here: the JAX
+    package's ``hough_voting`` computes "pallas_windowed" through its XLA
+    scatter (``ops/hough_voting.py:173-186``), the same function as this
+    6-channel splat, so the pipelines' non-lazy tails ignore the method."""
     if valid is not None:
         valid = valid.to(points.dtype)
     if corners is None:

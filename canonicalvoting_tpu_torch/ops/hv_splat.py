@@ -3,31 +3,40 @@
 Counterpart of ``hv_splat_pallas`` in
 ``canonicalvoting_tpu/ops/pallas/hv_splat.py``: ``hv_splat`` is its
 ``channels=1`` objectness grid, ``hv_splat6`` its ``channels=6`` raw sums
-``[obj, obj*cos, obj*sin, obj*sx, obj*sy, obj*sz]``. The kernel is in
-``csrc/hv_splat.cu``; its header says what bounds it on the H100, and how it
-makes the sums deterministic (64-bit fixed-point integer atomics).
+``[obj, obj*cos, obj*sin, obj*sx, obj*sy, obj*sz]``; ``hv_splat_windowed``
+is ``hv_splat_windowed`` there, ``hv_splat``'s function over points sorted
+into (y plane, x bucket) windows. The kernels are in ``csrc/hv_splat.cu``;
+its header says what bounds them on the H100, and how they make the sums
+deterministic (64-bit fixed-point integer atomics).
 
-Both wrappers run the kernel for CUDA tensors and the plain version for CPU
+The wrappers run the kernel for CUDA tensors and the plain version for CPU
 tensors, and raise for anything else. ``<wrapper>.launches`` counts kernel
-launches, apart for the two channel counts.
+launches, each wrapper its own.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from canonicalvoting_tpu_torch.ops.cuda_build import check, library
+from canonicalvoting_tpu_torch.ops.cuda_build import check, launcher
 
 TWO_PI = 2.0 * 3.141592654  # the upstream CUDA kernel's constant
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, ctypes.c_float,
-             _I, _I, _I, _I, _P, _P, _P]
+_ARGTYPES = {
+    "hv_splat_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P,
+                        ctypes.c_float, _I, _I, _I, _I, _P, _P, _P],
+    "hv_splat_windowed_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                                 _P, _P, _I, _P, _P, ctypes.c_float, _I, _I,
+                                 _I, _P, _P, _P],
+}
+_launcher = functools.partial(launcher, "hv_splat", _ARGTYPES)
 
 
 def rotation_table(num_rots: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -56,6 +65,14 @@ def hv_splat_plain(points, xyz, scale, obj, corner, dims, res, *, num_rots,
     (gx, gy, gz, 6) with six."""
     if channels not in (1, 6):
         raise ValueError(f"channels must be 1 or 6, got {channels}")
+    return _splat_plain(points, xyz, scale, obj, corner, dims, res, num_rots,
+                        grid_shape, valid, channels)
+
+
+def _splat_plain(points, xyz, scale, obj, corner, dims, res, num_rots,
+                 grid_shape, valid, channels, x_window=None):
+    """hv_splat_plain's sums; ``x_window`` ((N,), (N,)) int64 keeps only the
+    corners whose x cell lies in the point's [lo, hi)."""
     gx, gy, gz = grid_shape
     dev = points.device
     cosv, sinv = rotation_table(num_rots, dev)
@@ -77,6 +94,8 @@ def hv_splat_plain(points, xyz, scale, obj, corner, dims, res, *, num_rots,
         ok = torch.all((u >= 0.0) & (u < dimf - 1.0), -1)
         u = u[ok]
         ob = objv[:, None].expand(ok.shape)[ok]
+        if x_window is not None:
+            lo, hi = (t[:, None].expand(ok.shape)[ok] for t in x_window)
         if channels == 6:
             chan = torch.stack([c.expand(ok.shape), s.expand(ok.shape)]
                                + [scale[:, a:a + 1].expand(ok.shape)
@@ -95,13 +114,18 @@ def hv_splat_plain(points, xyz, scale, obj, corner, dims, res, *, num_rots,
             w = (w * ob)[:, None]
             if channels == 6:
                 w = torch.cat([w, w * chan], 1)
+            if x_window is not None:
+                xcell = fl[:, 0] + bits[0]
+                keep = (xcell >= lo) & (xcell < hi)
+                idx, w = idx[keep], w[keep]
             grid.index_add_(0, idx, w.double())
     grid = grid.float().reshape(gx, gy, gz, channels)
     return grid[..., 0] if channels == 1 else grid
 
 
-def _splat(points, xyz, scale, obj, corner, dims, res, num_rots,
-           grid_shape, valid, channels):
+def _route(points, xyz, scale, obj, corner, dims, valid) -> str:
+    """Check the splat's arguments: "cuda" for the kernel, "plain" for CPU
+    tensors; anything else raises."""
     n = points.shape[0]
     for name, t, shape in (("points", points, (n, 3)), ("xyz", xyz, (n, 3)),
                            ("scale", scale, (n, 3)), ("obj", obj, (n,)),
@@ -110,30 +134,43 @@ def _splat(points, xyz, scale, obj, corner, dims, res, num_rots,
             raise ValueError(f"{name} must be {shape} on {points.device}")
     if valid is not None and tuple(valid.shape) != (n,):
         raise ValueError("valid must be (N,)")
-    if not points.is_cuda:
-        if points.device.type != "cpu":
-            raise RuntimeError(f"no kernel for tensors on {points.device}")
+    if points.is_cuda:
+        return "cuda"
+    if points.device.type != "cpu":
+        raise RuntimeError(f"no kernel for tensors on {points.device}")
+    return "plain"
+
+
+def _kernel_args(points, xyz, scale, obj, corner, dims, valid, num_rots,
+                 grid_shape):
+    """The kernels' inputs on the card: float32 rows, valid or None, dims
+    clipped to grid_shape (the kernels' writes stay inside the grid only
+    with dims <= grid_shape) and the rotation table."""
+    dev = points.device
+    f = [t.to(torch.float32).contiguous() for t in (points, xyz, scale, obj, corner)]
+    v = None if valid is None else valid.to(torch.float32).contiguous()
+    d = torch.minimum(dims.to(torch.int32),
+                      torch.tensor(grid_shape, dtype=torch.int32, device=dev))
+    return f, v, d, rotation_table(num_rots, dev)
+
+
+def _splat(points, xyz, scale, obj, corner, dims, res, num_rots,
+           grid_shape, valid, channels):
+    if _route(points, xyz, scale, obj, corner, dims, valid) == "plain":
         return hv_splat_plain(points, xyz, scale, obj, corner, dims, res,
                               num_rots=num_rots, grid_shape=grid_shape,
                               valid=valid, channels=channels)
     gx, gy, gz = grid_shape
     dev = points.device
-    f = [t.to(torch.float32).contiguous() for t in (points, xyz, scale, obj, corner)]
-    v = None if valid is None else valid.to(torch.float32).contiguous()
-    # the kernel's writes stay inside the grid only with dims <= grid_shape
-    d = torch.minimum(dims.to(torch.int32),
-                      torch.tensor(grid_shape, dtype=torch.int32, device=dev))
-    cosv, sinv = rotation_table(num_rots, dev)
+    f, v, d, (cosv, sinv) = _kernel_args(points, xyz, scale, obj, corner, dims,
+                                         valid, num_rots, grid_shape)
     acc = torch.empty(gx * gy * gz * channels, dtype=torch.int64, device=dev)
     out = torch.empty((gx, gy, gz, channels), dtype=torch.float32, device=dev)
-    fn = library("hv_splat").hv_splat_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    rc = fn(*[t.data_ptr() for t in f[:4]], None if v is None else v.data_ptr(),
-            n, cosv.data_ptr(), sinv.data_ptr(), num_rots, f[4].data_ptr(),
-            d.data_ptr(), float(res), gx, gy, gz, channels, acc.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    rc = _launcher("hv_splat_launch")(
+        *[t.data_ptr() for t in f[:4]], None if v is None else v.data_ptr(),
+        points.shape[0], cosv.data_ptr(), sinv.data_ptr(), num_rots,
+        f[4].data_ptr(), d.data_ptr(), float(res), gx, gy, gz, channels,
+        acc.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check(rc, "hv_splat")
     (hv_splat6 if channels == 6 else hv_splat).launches += 1
     return out
@@ -169,3 +206,109 @@ def hv_splat6(points: torch.Tensor, xyz: torch.Tensor, scale: torch.Tensor,
 
 
 hv_splat6.launches = 0
+
+
+def window_keys(points, xyz, scale, corner, dims, res, *, grid_shape,
+                valid=None, x_bucket=32, x_pad=40) -> torch.Tensor:
+    """(N,) int64 segment key of each point, the JAX package's bucketing
+    (``hv_splat.py:440-456``): ``jy * NB + bx`` for a point whose vote floor
+    y plane is jy, whose x cell lies in x bucket bx (of NB = gx // x_bucket)
+    and whose rotation radius is at most ``x_pad - 2`` cells; ``gy * NB +
+    jy`` (the tail) for larger radii; ``gy * NB + gy`` for points off the y
+    range or not valid. The y plane is computed as the kernels place it."""
+    gx, gy, _ = grid_shape
+    nb = gx // x_bucket
+    res = device_scalar(res, points.device)
+    corr = xyz * scale
+    center_y = (points[:, 1] - corr[:, 1] - corner[1]) / res
+    jy = torch.floor(center_y).long()
+    y_ok = (center_y >= 0.0) & (center_y < dims[1].float() - 1.0)
+    if valid is not None:
+        y_ok = y_ok & (valid > 0)
+    px = (points[:, 0] - corner[0]) / res
+    r = torch.sqrt(corr[:, 0] ** 2 + corr[:, 2] ** 2) / res
+    bx = torch.clamp(torch.floor(px / x_bucket).long(), 0, nb - 1)
+    key = torch.where(r <= float(x_pad - 2), jy * nb + bx, gy * nb + jy)
+    return torch.where(y_ok, key, torch.full_like(key, gy * nb + gy))
+
+
+def _check_window(grid_shape, x_bucket, x_pad) -> None:
+    if x_bucket <= 0 or x_pad < 0 or grid_shape[0] % x_bucket:
+        raise ValueError(f"grid x {grid_shape[0]} must be a multiple of "
+                         f"x_bucket {x_bucket} > 0, and x_pad {x_pad} >= 0")
+
+
+def hv_splat_windowed_plain(points, xyz, scale, obj, corner, dims, res, *,
+                            num_rots, grid_shape, valid=None, x_bucket=32,
+                            x_pad=40):
+    """The windowed splat's function, segment by segment: each point of a
+    windowed segment keeps only the corners inside its segment's x window
+    ``[bx * x_bucket - x_pad, bx * x_bucket + x_bucket + x_pad)`` (the JAX
+    kernel's canvas), tail points keep every corner and points of no
+    segment none; summed in float64 as :func:`hv_splat_plain`. With the
+    keys right no corner leaves its window, so this equals hv_splat_plain;
+    a wrong bucket or a dropped tail point shows."""
+    _check_window(grid_shape, x_bucket, x_pad)
+    gx, gy, _ = grid_shape
+    nb = gx // x_bucket
+    key = window_keys(points, xyz, scale, corner, dims, res,
+                      grid_shape=grid_shape, valid=valid, x_bucket=x_bucket,
+                      x_pad=x_pad)
+    lo = (key % nb) * x_bucket - x_pad
+    hi = lo + x_bucket + 2 * x_pad
+    tail = (key >= gy * nb) & (key < gy * nb + gy)
+    lo = torch.where(tail, torch.full_like(lo, -x_pad), lo)
+    hi = torch.where(tail, torch.full_like(hi, gx + x_pad), hi)
+    hi = torch.where(key == gy * nb + gy, lo, hi)  # no segment: no corner
+    return _splat_plain(points, xyz, scale, obj, corner, dims, res, num_rots,
+                        grid_shape, valid, 1, x_window=(lo, hi))
+
+
+def hv_splat_windowed(points: torch.Tensor, xyz: torch.Tensor,
+                      scale: torch.Tensor, obj: torch.Tensor,
+                      corner: torch.Tensor, dims: torch.Tensor, res: float, *,
+                      num_rots: int, grid_shape: Tuple[int, int, int],
+                      valid: Optional[torch.Tensor] = None,
+                      chunk_points: int = 128, rot_chunk: int = 8,
+                      x_bucket: int = 32, x_pad: int = 40) -> torch.Tensor:
+    """:func:`hv_splat`'s objectness grid through (y plane, x bucket)
+    windows: points sorted by :func:`window_keys`, each windowed segment
+    splatted into its own x window, the large-radius tail over the full
+    width. Counterpart of the JAX package's ``hv_splat_windowed``
+    (``ops/pallas/hv_splat.py:404``); ``chunk_points`` and ``rot_chunk``
+    size that kernel's MXU steps and are accepted and unused here, and no
+    keyword changes the result. Needs ``gx % x_bucket == 0``. On the card
+    the grid equals hv_splat's bitwise: each vote is placed and weighted by
+    the same float operations, and the fixed-point sums do not depend on
+    order."""
+    del chunk_points, rot_chunk
+    _check_window(grid_shape, x_bucket, x_pad)
+    kw = dict(grid_shape=grid_shape, valid=valid, x_bucket=x_bucket,
+              x_pad=x_pad)
+    if _route(points, xyz, scale, obj, corner, dims, valid) == "plain":
+        return hv_splat_windowed_plain(points, xyz, scale, obj, corner, dims,
+                                       res, num_rots=num_rots, **kw)
+    gx, gy, gz = grid_shape
+    dev = points.device
+    f, v, d, (cosv, sinv) = _kernel_args(points, xyz, scale, obj, corner, dims,
+                                         valid, num_rots, grid_shape)
+    key = window_keys(f[0], f[1], f[2], f[4], d, res, **kw)
+    sorted_key, order = torch.sort(key, stable=True)
+    segs = torch.arange(gy * (gx // x_bucket) + gy, device=dev)
+    starts = torch.searchsorted(sorted_key, segs).to(torch.int32)
+    ends = torch.searchsorted(sorted_key, segs + 1).to(torch.int32)
+    order = order.to(torch.int32)
+    acc = torch.empty(gx * gy * gz, dtype=torch.int64, device=dev)
+    out = torch.empty(grid_shape, dtype=torch.float32, device=dev)
+    rc = _launcher("hv_splat_windowed_launch")(
+        *[t.data_ptr() for t in f[:4]], None if v is None else v.data_ptr(),
+        points.shape[0], order.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+        x_bucket, x_pad, cosv.data_ptr(), sinv.data_ptr(), num_rots,
+        f[4].data_ptr(), d.data_ptr(), float(res), gx, gy, gz, acc.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(rc, "hv_splat_windowed")
+    hv_splat_windowed.launches += 1
+    return out
+
+
+hv_splat_windowed.launches = 0

@@ -6,9 +6,11 @@ Counterparts of ``canonicalvoting_tpu/ops/pallas/tiled_conv.py``:
 ``tiled_conv3d_prefolded`` (its ``prefolded=True`` stem mode, over the
 grid :func:`fold_dydz` builds), ``tiled_down2`` (stride-2 k=2 conv) and
 ``tiled_up2`` (transposed stride-2 k=2 conv with the U-Net skip concat fused
-in). The kernels are in
-``csrc/tiled_conv.cu``; its header says what bounds them on the H100 and how
-they are built.
+in), ``tiled_up2_into`` (the same conv written in place into a grid that
+holds the skip, layout ``[skip | conv]``) and ``tiled_block3d`` (a whole
+BasicBlock in one launch; no model route calls it, as in the JAX package).
+The kernels are in ``csrc/tiled_conv.cu``; its header says what bounds them
+on the H100 and how they are built.
 
 Grids are margined and channel-last, (X + 2MX, Y + 2MY, Z + 2MZ, C), with
 their real channel count: bfloat16 on the card (the kernels' only dtype),
@@ -26,13 +28,14 @@ other. ``<wrapper>.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from canonicalvoting_tpu_torch.data.dense_prep import MX, MY, MZ
-from canonicalvoting_tpu_torch.ops.cuda_build import check, library
+from canonicalvoting_tpu_torch.ops.cuda_build import check, launcher
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,15 +48,19 @@ _ARGTYPES = {
                            _I, _I, _I, _P, _P, _P, _I, _P, _P],
     "tiled_up2_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                          _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "tiled_up2_into_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    "tiled_block3d_launch": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
+                             _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _P, _P],
 }
-
-
-def _launcher(name: str):
-    fn = getattr(library("tiled_conv"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
+_launcher = functools.partial(launcher, "tiled_conv", _ARGTYPES)
+# the JAX kernel keeps one parity of [skip | conv] in one 128-lane block
+# (tiled_conv.py:2013); the port keeps its limit
+UP_INTO_MAX_CHANNELS = 128
+# blocks of the fused BasicBlock kernel: each loops over the tile list and
+# owns one grown tile's conv1 scratch
+BLOCK_CTAS = 528
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -292,6 +299,33 @@ def tiled_up2_plain(x, w, tiles, *, tile_shape, scale=None, bias=None,
     return out
 
 
+def tiled_up2_into_plain(x, w, tiles, *, dest, skip_c, tile_shape, scale=None,
+                         bias=None, occ=None, relu_out=False):
+    Xc, Yc, Zc = _interior(x.shape)
+    fshape = (2 * Xc + 2 * MX, 2 * Yc + 2 * MY, 2 * Zc + 2 * MZ)
+    cout = w.shape[2]
+    conv = tiled_up2_plain(x, w, tiles, tile_shape=tile_shape, scale=scale,
+                           bias=bias, occ=occ, relu_out=relu_out)
+    oflat = _flat(_row_cells(tiles, tile_shape), fshape)
+    rows = dest.view(-1, dest.shape[3])
+    rows[oflat, skip_c:skip_c + cout] = conv.view(-1, cout)[oflat].to(dest.dtype)
+    return dest
+
+
+def tiled_block3d_plain(x, w1, w2, tiles, *, tile_shape, scale1, bias1,
+                        scale2, bias2, occ, res_w=None, res_scale=None,
+                        res_bias=None):
+    """The two-conv path: conv1 over the listed tiles, rounded to the grid's
+    dtype, then conv2 with the residual. Equal to the fused block because
+    every occupied cell lies in a listed tile, so a grown tile's mid outside
+    its own tile is either a neighbour tile's mid or masked to zero."""
+    kw = dict(tile_shape=tile_shape, kernel_size=3, occ=occ, relu_out=True)
+    mid = tiled_conv3d_plain(x, w1, tiles, scale=scale1, bias=bias1, **kw)
+    return tiled_conv3d_plain(mid, w2, tiles, scale=scale2, bias=bias2,
+                              residual=x, res_w=res_w, res_scale=res_scale,
+                              res_bias=res_bias, **kw)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 
@@ -471,3 +505,109 @@ def tiled_up2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
 
 
 tiled_up2.launches = 0
+
+
+def tiled_up2_into(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
+                   dest: torch.Tensor, skip_c: int,
+                   tile_shape: Tuple[int, int, int], scale=None, bias=None,
+                   occ=None, relu_out: bool = False) -> torch.Tensor:
+    """``tiled_up2``'s conv written IN PLACE into ``dest``: a fine grid of
+    ``skip_c + cout`` channels holding the skip in ``[0, skip_c)``. Over the
+    listed fine tiles, channels ``[skip_c, skip_c + cout)`` receive
+    ``relu?(occ * (W[d] @ in[p] * scale + bias))``; the skip channels and
+    every cell outside the tiles keep dest's values. Returns ``dest``, laid
+    out ``[skip | conv]`` (the next conv permutes its input rows).
+    Counterpart of the JAX package's ``tiled_up2_into``
+    (``ops/pallas/tiled_conv.py:1961``)."""
+    _check_grid(x, "x")
+    _check_grid(dest, "dest")
+    if w.shape[:2] != (8, x.shape[3]):
+        raise ValueError(f"weights {tuple(w.shape)} do not fit x {tuple(x.shape)}")
+    cout = w.shape[2]
+    if skip_c + cout > UP_INTO_MAX_CHANNELS:
+        raise ValueError(
+            f"tiled_up2_into writes [skip | conv] into at most "
+            f"{UP_INTO_MAX_CHANNELS} channels, as the JAX kernel does; skip_c "
+            f"{skip_c} + cout {cout} exceed it (a grouped net does)")
+    Xc, Yc, Zc = _interior(x.shape)
+    fshape = (2 * Xc + 2 * MX, 2 * Yc + 2 * MY, 2 * Zc + 2 * MZ)
+    if dest.shape != fshape + (skip_c + cout,) or dest.dtype != x.dtype \
+            or dest.device != x.device:
+        raise ValueError(f"dest {tuple(dest.shape)} {dest.dtype} must be "
+                         f"{fshape + (skip_c + cout,)} {x.dtype} on {x.device}")
+    _check_tiles(tiles, x, (2 * Xc, 2 * Yc, 2 * Zc), tile_shape)
+    _check_occ(occ, fshape)
+    if any(t % 2 for t in tile_shape):
+        raise ValueError(f"up tiles need even dims, got {tile_shape}")
+    kw = dict(tile_shape=tile_shape, scale=scale, bias=bias, occ=occ,
+              relu_out=relu_out)
+    if _route(x) == "plain":
+        return tiled_up2_into_plain(x, w, tiles, dest=dest, skip_c=skip_c, **kw)
+    dev = x.device
+    wf, sc, bi, oc = _like(w, x), _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
+    cells = tile_shape[0] * tile_shape[1] * tile_shape[2]
+    rc = _launcher("tiled_up2_into_launch")(
+        x.data_ptr(), x.shape[3], *x.shape[:3], wf.data_ptr(),
+        cout, tiles.data_ptr(), tiles.shape[0] * cells, *tile_shape, *fshape,
+        _ptr(sc), _ptr(bi), _ptr(oc), skip_c, dest.shape[3], int(relu_out),
+        dest.data_ptr(), _stream())
+    check(rc, "tiled_up2_into")
+    tiled_up2_into.launches += 1
+    return dest
+
+
+tiled_up2_into.launches = 0
+
+
+def tiled_block3d(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                  tiles: torch.Tensor, *, tile_shape: Tuple[int, int, int],
+                  scale1, bias1, scale2, bias2, occ: torch.Tensor, res_w=None,
+                  res_scale=None, res_bias=None) -> torch.Tensor:
+    """A whole BasicBlock over the listed tiles: ``relu(occ * bn2(conv2
+    relu(occ * bn1(conv1 x))) + res)``, ``res`` the input (Cin == Cout) or
+    the fused 1x1 downsample ``occ * ((x @ res_w) * res_scale + res_bias)``.
+    ``w1`` (27, Cin, Mid), ``w2`` (27, Mid, Cout). Returns a new grid of x's
+    shape with Cout channels, zeros outside the listed tiles. Counterpart of
+    the JAX package's ``tiled_block3d`` (``ops/pallas/tiled_conv.py:977``),
+    reading the margined occupancy grid instead of its expanded lane pack;
+    the margins (MX = MY = 2) absorb the two-cell halo."""
+    _check_grid(x, "x")
+    cin, mid, cout = x.shape[3], w1.shape[2], w2.shape[2]
+    if w1.shape[:2] != (27, cin) or w2.shape[:2] != (27, mid):
+        raise ValueError(f"weights {tuple(w1.shape)}, {tuple(w2.shape)} do not "
+                         f"fit x {tuple(x.shape)}")
+    if (res_w is None) != (res_scale is None) or (res_w is None) != (res_bias is None):
+        raise ValueError("pass res_w, res_scale and res_bias together")
+    if res_w is None and cin != cout:
+        raise ValueError(f"the identity residual needs cin == cout, got {cin} -> {cout}")
+    if res_w is not None and tuple(res_w.shape) != (cin, cout):
+        raise ValueError(f"res_w {tuple(res_w.shape)} must be ({cin}, {cout})")
+    _check_tiles(tiles, x, _interior(x.shape), tile_shape)
+    if occ is None:
+        raise ValueError("the block masks with the level's occupancy: pass occ")
+    _check_occ(occ, x.shape[:3])
+    kw = dict(tile_shape=tile_shape, scale1=scale1, bias1=bias1, scale2=scale2,
+              bias2=bias2, occ=occ, res_w=res_w, res_scale=res_scale,
+              res_bias=res_bias)
+    if _route(x) == "plain":
+        return tiled_block3d_plain(x, w1, w2, tiles, **kw)
+    dev = x.device
+    tx, ty, tz = tile_shape
+    n_ctas = min(int(tiles.shape[0]), BLOCK_CTAS)
+    scratch = torch.empty(n_ctas * (tx + 2) * (ty + 2) * (tz + 2) * mid,
+                          dtype=x.dtype, device=dev)
+    out = torch.zeros(x.shape[:3] + (cout,), dtype=x.dtype, device=dev)
+    w1f, w2f, rw = _like(w1, x), _like(w2, x), _like(res_w, x)
+    f = [_f32(t, dev) for t in (scale1, bias1, scale2, bias2, occ, res_scale,
+                                res_bias)]
+    rc = _launcher("tiled_block3d_launch")(
+        x.data_ptr(), cin, *x.shape[:3], w1f.data_ptr(), w2f.data_ptr(), mid,
+        cout, tiles.data_ptr(), tiles.shape[0], *tile_shape,
+        *[_ptr(t) for t in f[:5]], _ptr(rw), _ptr(f[5]), _ptr(f[6]),
+        scratch.data_ptr(), n_ctas, out.data_ptr(), _stream())
+    check(rc, "tiled_block3d")
+    tiled_block3d.launches += 1
+    return out
+
+
+tiled_block3d.launches = 0

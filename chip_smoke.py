@@ -6,9 +6,13 @@ Phase 0 builds the CUDA kernels from csrc/ and names the card.
 Phase 1 runs every kernel at every configuration the paths give it
 (recorded from a pass on a ScanNet-scale synthetic scene, in bfloat16: the
 joint path, the separate path's prefolded stem, the non-lazy tail's
-6-channel splat), holds it against its plain PyTorch version, and times
-kernel, plain version, the library call computing the same function where
-there is one, and the card's bound for the work.
+6-channel splat, the joint path's variant routes: the into-convs of
+up_impl="into" and the windowed splat of hv_method="pallas_windowed"),
+holds it against its plain PyTorch version, and times kernel, plain
+version, the library call computing the same function where there is one,
+and the card's bound for the work. The fused BasicBlock kernel, which no
+path runs, is held against its plain version and the two-conv output on
+the recorded input of each of the joint pass's 23 blocks.
 Phase 2 drives the joint inference path at full MinkUNet34C width on three
 synthetic scenes (random weights from a seed; the tail decodes planted head
 rows, so every scene carries boxes) and checks from the launch counters that
@@ -25,6 +29,11 @@ head rows.
 The non-lazy phase runs the joint path and the separate evaluator with
 lazy_rot_scale=False (the 6-channel splat) against their lazy paths, and
 the separate evaluator with group_size=2 against group_size=1.
+The variants phase drives the three scenes through the joint path with
+up_impl="into" and hv_method="pallas_windowed", checks the exact launch
+counts and the default routes' boxes and head rows, times backbone and
+splat both ways, and runs one separate scene with both variants against
+the default.
 
 The last two lines are the kernels' summary and the status line. The script
 exits non-zero, printing neither, if there is no CUDA device, if the port is
@@ -53,12 +62,20 @@ SPLAT_REL_TOL = 1e-4
 # the head rows after 47 bf16 convs on each side: 1% of their largest
 # magnitude
 HEAD_REL_TOL = 1e-2
-PER_SCENE = {"tiled_conv3d": 47, "tiled_down2": 4, "tiled_up2": 4}
+# the default routes run none of the variant routes' kernels
+NO_VARIANTS = {"tiled_up2_into": 0, "hv_splat_windowed": 0, "tiled_block3d": 0}
+PER_SCENE = {"tiled_conv3d": 47, "tiled_down2": 4, "tiled_up2": 4,
+             **NO_VARIANTS}
 # one separate scene: 9 categories x (46 k=3 convs, the prefolded stem, 4
 # downs, 4 ups, one objectness splat)
 SEPARATE_PER_SCENE = {"tiled_conv3d": 9 * 46, "tiled_conv3d_prefolded": 9,
                       "tiled_down2": 36, "tiled_up2": 36, "hv_splat": 9,
-                      "hv_splat6": 0}
+                      "hv_splat6": 0, **NO_VARIANTS}
+# one joint scene with up_impl="into" (the ups into L0 and L1) and
+# hv_method="pallas_windowed"
+VARIANT_PER_SCENE = {"tiled_conv3d": 47, "tiled_down2": 4, "tiled_up2": 2,
+                     "tiled_up2_into": 2, "hv_splat_windowed": 1,
+                     "hv_splat": 0, "tiled_block3d": 0}
 N_SEPARATE_SCENES = 2
 SOURCES = {
     "tiled_conv3d": ("canonicalvoting_tpu_torch/csrc/tiled_conv.cu",
@@ -74,6 +91,12 @@ SOURCES = {
                  "canonicalvoting_tpu/ops/pallas/hv_splat.py:195"),
     "hv_splat6": ("canonicalvoting_tpu_torch/csrc/hv_splat.cu",
                   "canonicalvoting_tpu/ops/pallas/hv_splat.py:195 (channels=6)"),
+    "tiled_up2_into": ("canonicalvoting_tpu_torch/csrc/tiled_conv.cu",
+                       "canonicalvoting_tpu/ops/pallas/tiled_conv.py:1961"),
+    "hv_splat_windowed": ("canonicalvoting_tpu_torch/csrc/hv_splat.cu",
+                          "canonicalvoting_tpu/ops/pallas/hv_splat.py:404"),
+    "tiled_block3d": ("canonicalvoting_tpu_torch/csrc/tiled_conv.cu",
+                      "canonicalvoting_tpu/ops/pallas/tiled_conv.py:977"),
 }
 
 
@@ -128,7 +151,7 @@ def build_separate(**kw):
     from canonicalvoting_tpu_torch.models import DenseMinkUNet34C
     from canonicalvoting_tpu_torch.utils.weights import category_state_dicts
 
-    model = DenseMinkUNet34C(3, 8)
+    model = DenseMinkUNet34C(3, 8, up_impl=kw.pop("up_impl", None))
     cats = kw.pop("categories", ALL_CATEGORIES)
     pipe = SeparateDetectionPipeline(
         model=model, categories=cats, res=RES, num_rots=NUM_ROTS,
@@ -179,6 +202,17 @@ def planted_rows(scene, args):
 
 
 @contextlib.contextmanager
+def variants(pipe, up_impl="into", hv_method="pallas_windowed"):
+    """The joint pipeline on the opt-in routes, restored on exit."""
+    old = pipe.model.up_impl, pipe.hv_method
+    pipe.model.up_impl, pipe.hv_method = up_impl, hv_method
+    try:
+        yield pipe
+    finally:
+        pipe.model.up_impl, pipe.hv_method = old
+
+
+@contextlib.contextmanager
 def patched(module, **fns):
     old = {k: getattr(module, k) for k in fns}
     for k, f in fns.items():
@@ -191,14 +225,19 @@ def patched(module, **fns):
 
 
 def counters():
-    from canonicalvoting_tpu_torch.ops.hv_splat import hv_splat, hv_splat6
+    from canonicalvoting_tpu_torch.ops.hv_splat import (
+        hv_splat, hv_splat6, hv_splat_windowed)
     from canonicalvoting_tpu_torch.ops.tiled_conv import (
-        tiled_conv3d, tiled_conv3d_prefolded, tiled_down2, tiled_up2)
+        tiled_block3d, tiled_conv3d, tiled_conv3d_prefolded, tiled_down2,
+        tiled_up2, tiled_up2_into)
 
     return {"tiled_conv3d": tiled_conv3d,
             "tiled_conv3d_prefolded": tiled_conv3d_prefolded,
             "tiled_down2": tiled_down2, "tiled_up2": tiled_up2,
-            "hv_splat": hv_splat, "hv_splat6": hv_splat6}
+            "hv_splat": hv_splat, "hv_splat6": hv_splat6,
+            "tiled_up2_into": tiled_up2_into,
+            "hv_splat_windowed": hv_splat_windowed,
+            "tiled_block3d": tiled_block3d}
 
 
 def reset_counters():
@@ -247,7 +286,9 @@ def recorder(records, module, name):
             key = (name, tuple(a[0].shape[3:]), tuple(a[1].shape),
                    kw["tile_shape"], int(a[2].shape[0]), kind,
                    kw.get("skip_c", 0))
-        r = records.setdefault(key, {"name": name, "args": a, "kw": kw,
+        # the into-conv writes its dest in place: keep dest as it came
+        kept = {**kw, "dest": kw["dest"].clone()} if "dest" in kw else kw
+        r = records.setdefault(key, {"name": name, "args": a, "kw": kept,
                                      "count": 0})
         r["count"] += 1
         return f(*a, **kw)
@@ -257,7 +298,8 @@ def recorder(records, module, name):
 def record_calls(pipe, sep, args, rows, sep_args):
     """{config: record} of every kernel call one scene's passes make: the
     joint path, the separate path's prefolded stem (its other calls have
-    the joint path's configurations) and the non-lazy tail's splat."""
+    the joint path's configurations), the non-lazy tail's splat and the
+    joint path's variant routes (the into-convs and the windowed splat)."""
     import canonicalvoting_tpu_torch.models.dense_unet as du
     import canonicalvoting_tpu_torch.ops.hough_voting as hv
 
@@ -265,6 +307,12 @@ def record_calls(pipe, sep, args, rows, sep_args):
     with patched(du, **{n: recorder(records, du, n) for n in
                         ("tiled_conv3d", "tiled_down2", "tiled_up2")}), \
             patched(hv, hv_splat=recorder(records, hv, "hv_splat")):
+        pipe.backbone(args)
+        pipe.tail(rows, args.coords_w, args.valid, args.grid_shape)
+    with variants(pipe), \
+            patched(du, tiled_up2_into=recorder(records, du, "tiled_up2_into")), \
+            patched(hv, hv_splat_windowed=recorder(records, hv,
+                                                   "hv_splat_windowed")):
         pipe.backbone(args)
         pipe.tail(rows, args.coords_w, args.valid, args.grid_shape)
     with patched(du, tiled_conv3d_prefolded=recorder(
@@ -292,7 +340,7 @@ def occupied_work(r, occ_of):
     occ = kw["occ"]
     live = occ.reshape(-1)[tc._flat(cells, occ.shape)] > 0
     n_live = int(live.sum())
-    if name == "tiled_up2":  # an occupied fine cell takes one parent tap
+    if name in ("tiled_up2", "tiled_up2_into"):  # one parent tap a fine cell
         return cells.shape[0], n_live, n_live
     src = occ_of[tuple(x.shape[:3])].reshape(-1)
     shape = x.shape[:3]
@@ -313,14 +361,16 @@ def conv_bound(r, occ_of):
     """(bound_ms, bound_by): the listed cells' inputs, outputs, residual or
     skip and occupancy moved once, weights once, all at their element sizes;
     against the bf16 MACs of the occupied (output, tap) pairs, plus the
-    fused 1x1 at occupied cells."""
+    fused 1x1 at occupied cells. The into-conv writes its conv channels
+    only: the skip copy into its dest is not charged."""
     a, kw, name = r["args"], r["kw"], r["name"]
     x, w = a[0], a[1]
     rows, live, pairs = occupied_work(r, occ_of)
     _, cin, cout = w.shape
     el = x.element_size()
-    in_rows = {"tiled_down2": rows * 8, "tiled_up2": rows // 8}.get(name, rows)
-    skip_c = kw.get("skip_c", 0)
+    in_rows = {"tiled_down2": rows * 8, "tiled_up2": rows // 8,
+               "tiled_up2_into": rows // 8}.get(name, rows)
+    skip_c = kw.get("skip_c", 0) if name == "tiled_up2" else 0
     nbytes = ((in_rows * cin + rows * (cout + 2 * skip_c)) * el
               + w.numel() * el + rows * 4)
     flops = 2 * pairs * cin * cout
@@ -415,7 +465,7 @@ def library_call(r):
         wf = tc.fold_stem_weights(w.to(x.dtype), k, x.shape[3])
         wc = wf.permute(2, 1, 0)[..., None, None].contiguous()
         return lambda: F.conv3d(xs, wc, padding=(k // 2, 0, 0))
-    if name == "tiled_up2":
+    if name in ("tiled_up2", "tiled_up2_into"):
         wt = w.reshape(2, 2, 2, w.shape[1], w.shape[2]).permute(3, 4, 2, 1, 0)
         wt = wt.contiguous().to(x.dtype)
         return lambda: F.conv_transpose3d(xs, wt, stride=2)
@@ -432,9 +482,120 @@ def rel_err(got, want):
     return err, float(want.float().abs().max())
 
 
+def fresh(kw):
+    """kw with a copy of the into-conv's dest, which it writes in place."""
+    return {**kw, "dest": kw["dest"].clone()} if "dest" in kw else kw
+
+
+def block_bound(x, w1, w2, tiles, ts, occ, res_w):
+    """(bound_ms, bound_by) of one BasicBlock: the listed cells' input and
+    output, both weights (and the 1x1 downsample's) and occupancy moved
+    once, no mid (every occupied cell lies in a listed tile, so the halo
+    around them holds zeros the block need not read); against the bf16
+    MACs of the occupied (output, tap) pairs of both convs (the mid is
+    masked by the same occupancy as the input), plus the 1x1 at occupied
+    cells."""
+    import torch
+
+    import canonicalvoting_tpu_torch.ops.tiled_conv as tc
+
+    cells = tc._row_cells(tiles, ts)
+    occf = occ.reshape(-1)
+    live = occf[tc._flat(cells, occ.shape)] > 0
+    pairs = 0
+    for t in range(27):
+        d = torch.tensor([t % 3 - 1, (t // 3) % 3 - 1, t // 9 - 1], device=cells.device)
+        pairs += int((live & (occf[tc._flat(cells + d, occ.shape)] > 0)).sum())
+    cin, mid, cout = w1.shape[1], w1.shape[2], w2.shape[2]
+    el, rows, n_live = x.element_size(), cells.shape[0], int(live.sum())
+    weights = w1.numel() + w2.numel() + (0 if res_w is None else res_w.numel())
+    nbytes = (rows * (cin + cout) + weights) * el + rows * 4
+    flops = 2 * pairs * (cin * mid + mid * cout)
+    if res_w is not None:
+        flops += 2 * n_live * cin * cout
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return ((t_b, "bytes") if t_b >= t_f else (t_f, "operations")), \
+        {"listed_cells": rows, "occupied_cells": n_live, "occupied_pairs": pairs}
+
+
+def phase1_blocks(pipe, args, s, failures):
+    """tiled_block3d, which no path runs, on the recorded input of each of
+    the default joint pass's 23 BasicBlocks: against its plain version and
+    against the two-conv output of that block, each within 1% of the
+    output's largest magnitude; timed beside the two convs."""
+    import torch
+
+    import canonicalvoting_tpu_torch.models.dense_unet as du
+    import canonicalvoting_tpu_torch.ops.tiled_conv as tc
+
+    blocks, two_conv = [], du.BasicBlock.forward
+
+    def rec(blk, x, occ, tiles, ts, in_perm=None):
+        out = two_conv(blk, x, occ, tiles, ts, in_perm)
+        blocks.append((blk, x, occ, tiles, ts, out))
+        return out
+
+    with patched(du.BasicBlock, forward=rec):
+        pipe.backbone(args)
+
+    def block_call(blk, x, occ, tiles, ts):
+        a1, b1 = blk.norm1.affine()
+        a2, b2 = blk.norm2.affine()
+        kw = dict(tile_shape=ts, scale1=a1, bias1=b1, scale2=a2, bias2=b2,
+                  occ=occ)
+        if blk.downsample:
+            rs, rb = blk.downsample_norm.affine()
+            kw.update(res_w=blk.downsample_conv.kernel[0], res_scale=rs,
+                      res_bias=rb)
+        return (x, blk.conv1.kernel, blk.conv2.kernel, tiles), kw
+
+    # the checking calls alone, counted by the wrapper before any timing
+    torch.cuda.synchronize()
+    reset_counters()
+    errs = []
+    for i, (blk, x, occ, tiles, ts, out) in enumerate(blocks):
+        a, kw = block_call(blk, x, occ, tiles, ts)
+        got = tc.tiled_block3d(*a, **kw)
+        err, scale = rel_err(got, tc.tiled_block3d_plain(*a, **kw))
+        err2, scale2 = rel_err(got, out)
+        del got
+        tol, tol2 = CONV_REL_TOL * scale, CONV_REL_TOL * scale2
+        if not (err <= tol and err2 <= tol2):
+            failures.append(("tiled_block3d", i, err, tol, err2, tol2))
+        errs.append((err, scale, tol, err2, tol2))
+    s["launches"] = tc.tiled_block3d.launches
+    s["library_ms"] = None
+    s["two_conv_ms"] = 0.0
+    for i, (blk, x, occ, tiles, ts, out) in enumerate(blocks):
+        a, kw = block_call(blk, x, occ, tiles, ts)
+        err, scale, tol, err2, tol2 = errs[i]
+        ms = time_ms(lambda: tc.tiled_block3d(*a, **kw), 5)
+        plain_ms = time_ms(lambda: tc.tiled_block3d_plain(*a, **kw), 2)
+        two_ms = time_ms(lambda: two_conv(blk, x, occ, tiles, ts), 5)
+        (bound_ms, bound_by), work = block_bound(x, a[1], a[2], tiles, ts, occ,
+                                                 kw.get("res_w"))
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["ms"] += ms
+        s["plain_ms"] += plain_ms
+        s["two_conv_ms"] += two_ms
+        s["bound_ms"] += bound_ms
+        s[bound_by] += bound_ms
+        emit({"phase": 1, "kernel": "tiled_block3d", "block": i,
+              "config": [str(tuple(x.shape[3:])), str(tuple(a[1].shape)),
+                         str(tuple(a[2].shape)), str(ts), str(int(tiles.shape[0])),
+                         "1x1" if blk.downsample else "identity"],
+              "max_abs_err": err, "ref_max": scale, "tol": tol,
+              "two_conv_max_abs_err": err2, "two_conv_tol": tol2,
+              "kernel_ms": ms, "plain_ms": plain_ms, "two_conv_ms": two_ms,
+              "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+              **work})
+    blocks.clear()
+
+
 def phase1(pipe, scene):
     import torch
 
+    import canonicalvoting_tpu_torch.models.dense_unet as du
     import canonicalvoting_tpu_torch.ops.hv_splat as hs
     import canonicalvoting_tpu_torch.ops.tiled_conv as tc
 
@@ -442,7 +603,9 @@ def phase1(pipe, scene):
              "tiled_conv3d_prefolded": tc.tiled_conv3d_prefolded_plain,
              "tiled_down2": tc.tiled_down2_plain,
              "tiled_up2": tc.tiled_up2_plain, "hv_splat": hs.hv_splat_plain,
-             "hv_splat6": functools.partial(hs.hv_splat_plain, channels=6)}
+             "hv_splat6": functools.partial(hs.hv_splat_plain, channels=6),
+             "tiled_up2_into": tc.tiled_up2_into_plain,
+             "hv_splat_windowed": hs.hv_splat_windowed_plain}
     kern = counters()
     args = pipe.prepare_scene(scene.points, scene.rgb)
     # the separate path's stem calls; the pipeline is dropped with the
@@ -459,8 +622,13 @@ def phase1(pipe, scene):
     failures = []
     for key, r in records.items():
         name, a, kw = r["name"], r["args"], r["kw"]
-        got, want = kern[name](*a, **kw), plain[name](*a, **kw)
+        got, want = kern[name](*a, **fresh(kw)), plain[name](*a, **fresh(kw))
         extra = {}
+        if name == "hv_splat_windowed":
+            extra["bitwise_equal_hv_splat"] = bool(torch.equal(got, hs.hv_splat(
+                *a, **{k: v for k, v in kw.items() if k != "x_bucket"})))
+            if not extra["bitwise_equal_hv_splat"]:
+                failures.append((key, "not bitwise equal to hv_splat"))
         if name == "hv_splat6":  # each channel within 1e-4 of its own peak
             errs = [rel_err(got[..., c], want[..., c]) for c in range(6)]
             err, scale = max(e for e, _ in errs), max(m for _, m in errs)
@@ -471,12 +639,22 @@ def phase1(pipe, scene):
                 failures.append((key, errs))
         else:
             err, scale = rel_err(got, want)
-            tol = (SPLAT_REL_TOL if name == "hv_splat" else CONV_REL_TOL) * scale
+            tol = (SPLAT_REL_TOL if name.startswith("hv_splat")
+                   else CONV_REL_TOL) * scale
             if not err <= tol:
                 failures.append((key, err, tol))
         del got, want
-        ms = time_ms(lambda: kern[name](*a, **kw), 5)
-        plain_ms = time_ms(lambda: plain[name](*a, **kw), 2)
+        # the into-conv rewrites the same values into its dest on each call
+        kw_k, kw_p = fresh(kw), fresh(kw)
+        ms = time_ms(lambda: kern[name](*a, **kw_k), 5)
+        plain_ms = time_ms(lambda: plain[name](*a, **kw_p), 2)
+        del kw_k, kw_p
+        if name == "tiled_up2_into":  # the skip copy that builds its dest
+            skc = kw["skip_c"]
+            skip = kw["dest"][..., :skc].contiguous()
+            extra["dest_copy_ms"] = time_ms(lambda: du.into_dest(
+                skip, skc, a[1].shape[2]), 5)
+            del skip
         lib = library_call(r)
         lib_ms = time_ms(lib, 3) if lib is not None else None
         if name.startswith("hv_splat"):
@@ -503,6 +681,8 @@ def phase1(pipe, scene):
               "bound_by": bound_by, **extra})
     records.clear()
     occ_of.clear()
+    torch.cuda.empty_cache()
+    phase1_blocks(pipe, args, summary["tiled_block3d"], failures)
     torch.cuda.empty_cache()
     assert not failures, f"kernels disagree with their plain versions: {failures}"
     for n, s in summary.items():
@@ -859,6 +1039,110 @@ def phase_nonlazy(pipe, sep, scene):
     return {k: launches[k] + sep_launches[k] for k in launches}
 
 
+def splat_ms(pipe, args, rows, method):
+    """(ms, grid) of the joint tail's objectness splat through ``method``,
+    synchronized on both sides."""
+    import torch
+
+    from canonicalvoting_tpu_torch.eval.pipeline import slice_joint_heads
+    from canonicalvoting_tpu_torch.ops.hough_voting import (
+        compute_corners, hough_voting_obj)
+
+    xyz, scale, _, prob = slice_joint_heads(rows)
+    scale = torch.exp(scale)
+    corners = compute_corners(args.coords_w, args.valid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    go = hough_voting_obj(args.coords_w, xyz, scale, prob, res=RES,
+                          num_rots=NUM_ROTS, grid_shape=args.grid_shape,
+                          corners=corners, valid=args.valid, method=method)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, go
+
+
+def phase_variants(pipe, sep, scenes):
+    """The joint path on the opt-in routes, up_impl="into" and
+    hv_method="pallas_windowed", over the three scenes: exact launch
+    counts, >= 4 planted boxes a scene, the default routes' box counts,
+    classes and boxes (within one vote cell) and head rows (within 1% of
+    their largest magnitude); backbone and splat timed both ways,
+    alternated scene by scene; then one separate scene with both variants
+    finds the default's detections. Returns the joint run's launches."""
+    import numpy as np
+    import torch
+
+    prepped = [pipe.prepare_scene(s.points, s.rgb) for s in scenes]
+    planted = [planted_rows(s, a) for s, a in zip(scenes, prepped)]
+    default = [run_planted(pipe, a, r)[:2] for a, r in zip(prepped, planted)]
+    with variants(pipe):
+        for a, r in zip(prepped, planted):  # warm-up
+            run_planted(pipe, a, r)
+        torch.cuda.synchronize()
+        reset_counters()
+        runs = [run_planted(pipe, a, r)[:2] for a, r in zip(prepped, planted)]
+        torch.cuda.synchronize()
+        launches = read_counters()
+    n_boxes, box_err, head_err, head_tol, bitwise = [], 0.0, [], [], []
+    for (out_d, res_d), (out_v, res_v) in zip(default, runs):
+        n = int(res_v["n_boxes"])
+        n_boxes.append([int(res_d["n_boxes"]), n])
+        assert n >= 4 and n == int(res_d["n_boxes"]), n_boxes
+        assert torch.equal(res_v["classes"][:n], res_d["classes"][:n]), "classes differ"
+        box_err = max(box_err, float((res_v["boxes"][:n] - res_d["boxes"][:n])
+                                     .abs().max()))
+        head_err.append(float((out_v - out_d).abs().max()))
+        head_tol.append(HEAD_REL_TOL * float(out_d.abs().max()))
+    ms = {"backbone_concat": [], "backbone_into": [], "splat_plane": [],
+          "splat_windowed": []}
+    for a, r in zip(prepped, planted):
+        for up in ("concat", "into"):
+            with variants(pipe, up_impl=up):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipe.backbone(a)
+                torch.cuda.synchronize()
+                ms[f"backbone_{up}"].append((time.perf_counter() - t0) * 1e3)
+        t_p, go_p = splat_ms(pipe, a, r, "auto")
+        t_w, go_w = splat_ms(pipe, a, r, "pallas_windowed")
+        ms["splat_plane"].append(t_p)
+        ms["splat_windowed"].append(t_w)
+        bitwise.append(bool(torch.equal(go_p, go_w)))
+        del go_p, go_w
+
+    # one separate scene, both variants, against the default evaluator
+    sepv = build_separate(up_impl="into", hv_method="pallas_windowed")
+    sargs = sep.prepare_quantized(*quantize(scenes[0]))
+    srows = separate_rows(scenes[0], sargs, len(sep.categories))
+    out_d, out_v = sep.run_scene(sargs, planted=srows), sepv.run_scene(
+        sargs, planted=srows)
+    dets_d, dets_v = sep.postprocess(out_d), sepv.postprocess(out_v)
+    sn = out_d["n_boxes"].tolist()
+    sbox_err = max([float((out_v["boxes"][c, :m] - out_d["boxes"][c, :m])
+                          .abs().max()) for c, m in enumerate(sn) if m] + [0.0])
+    del sepv
+    torch.cuda.empty_cache()
+    emit({"phase": "variants", "scenes": len(scenes), "launches": launches,
+          "n_boxes": n_boxes, "box_max_abs_err": box_err,
+          "head_rows_max_abs_err": head_err, "head_rows_tol": head_tol,
+          "splat_bitwise_equal": bitwise, "ms": ms,
+          "median_ms": {k: float(np.median(v)) for k, v in ms.items()},
+          "separate": {"n_boxes": [sn, out_v["n_boxes"].tolist()],
+                       "detections": [len(dets_d), len(dets_v)],
+                       "box_max_abs_err": sbox_err}})
+    for n, per in VARIANT_PER_SCENE.items():
+        assert launches[n] == per * len(scenes), (n, launches[n])
+    assert all(bitwise), f"windowed splat not bitwise equal to hv_splat: {bitwise}"
+    assert box_err <= RES + 1e-4, f"variant boxes differ by {box_err}"
+    assert all(e <= t for e, t in zip(head_err, head_tol)), \
+        f"variant head rows differ by {head_err} (limits {head_tol})"
+    assert out_v["n_boxes"].tolist() == sn and sum(sn) >= 1, \
+        "separate variant box counts differ"
+    assert sbox_err <= RES + 1e-4, f"separate variant boxes differ by {sbox_err}"
+    assert [c for c, _, _ in dets_v] == [c for c, _, _ in dets_d], \
+        "separate variant detections differ"
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -892,7 +1176,8 @@ def main() -> int:
               ("phase3", lambda: phase3(pipe, *done["phase2"][1:])),
               ("separate", lambda: phase_separate(sep(), scenes)),
               ("stem", lambda: phase_stem(sep(), scenes)),
-              ("nonlazy", lambda: phase_nonlazy(pipe, sep(), scenes[0])))
+              ("nonlazy", lambda: phase_nonlazy(pipe, sep(), scenes[0])),
+              ("variants", lambda: phase_variants(pipe, sep(), scenes)))
     for name, run in phases:
         try:
             done[name] = run()
@@ -902,11 +1187,13 @@ def main() -> int:
     emit({"total_s": time.perf_counter() - t_start, "failed": failed})
     if failed:
         return 1
-    # launches: the sum over the runs of the three paths (phase 2, the
-    # separate phase, the non-lazy phase), each counted from 0
+    # launches: the sum over the runs of the four paths (phase 2, the
+    # separate phase, the non-lazy phase, the variants phase), each counted
+    # from 0; the fused block, which no path runs, counts phase 1's checks
     summary = done["phase1"]
     launches = {n: done["phase2"][0][n] + done["separate"][n]
-                + done["nonlazy"][n] for n in SOURCES}
+                + done["nonlazy"][n] + done["variants"][n] for n in SOURCES}
+    launches["tiled_block3d"] = summary["tiled_block3d"]["launches"]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         s = summary[name]
@@ -916,6 +1203,10 @@ def main() -> int:
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})
+        if name == "tiled_block3d":
+            kernels[-1]["launches_from"] = (
+                "phase 1: one check a BasicBlock of a joint pass; no path "
+                "runs the fused block")
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

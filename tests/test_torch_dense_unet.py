@@ -122,6 +122,27 @@ def test_dense_unet_matches_jax_xla(layers):
     assert np.abs(got).max() > 0.1
 
 
+def test_dense_unet_into_matches_concat_and_jax(monkeypatch):
+    """up_impl="into" (the up-convs into L0 and L1 through tiled_up2_into,
+    the next blocks' input rows permuted) gives the concat route's rows,
+    up to the float32 summation order of the permuted channels, and the JAX
+    XLA rows as test_dense_unet_matches_jax_xla holds them."""
+    import canonicalvoting_tpu_torch.models.dense_unet as du
+
+    model, variables, args, want = _cached_setup((1,) * 8)
+    from_jax_variables(model, variables["params"], variables["batch_stats"])
+    into = DenseMinkUNet(**{**model.config(), "up_impl": "into"})
+    from_jax_variables(into, variables["params"], variables["batch_stats"])
+    calls, real = [], du.tiled_up2_into
+    monkeypatch.setattr(du, "tiled_up2_into", lambda *a, **kw: calls.append(
+        kw["skip_c"]) or real(*a, **kw))
+    got = into(*args).numpy()
+    assert calls == [8, 8]  # into L1 (skip planes[0]) and L0 (init_dim)
+    np.testing.assert_allclose(got, model(*args).numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3)
+    assert np.all(got[-3:] == 0)
+
+
 def test_pth_round_trip(tmp_path):
     """JAX variables -> upstream .pth (torch.save) -> the port's loader
     gives the same rows as the direct copy."""

@@ -128,6 +128,50 @@ def test_backbone_branch_matches_jax(planted):
     assert bool(out["truncated"]) == bool(jout["truncated"])
 
 
+def test_variants_give_the_default_boxes(planted, monkeypatch):
+    """up_impl="into" and hv_method="pallas_windowed" against the default
+    routes on the planted scene, over a vote grid whose x extent is a
+    multiple of the windowed splat's 32-cell buckets: the variant backbone
+    runs its two into-convs (its rows are held to the concat route's by
+    tests/test_torch_dense_unet.py) and the tails find the same boxes."""
+    import canonicalvoting_tpu_torch.models.dense_unet as du
+    import canonicalvoting_tpu_torch.ops.hough_voting as thv
+
+    scene, pipe, _, _ = planted
+    calls, real_up, real_splat = [], du.tiled_up2_into, thv.hv_splat_windowed
+    monkeypatch.setattr(du, "tiled_up2_into", lambda *a, **k: calls.append(
+        "into") or real_up(*a, **k))
+    monkeypatch.setattr(thv, "hv_splat_windowed", lambda *a, **k: calls.append(
+        "windowed") or real_splat(*a, **k))
+    kw = dict(res=RES, num_rots=ROTS, peel=pipe.peel, grid_multiple=(32, 16, 16),
+              cap_multiple=1024, device="cpu")
+    default = DetectionPipeline(model=pipe.model, **kw)
+    into = DenseMinkUNet(**{**pipe.model.config(), "up_impl": "into"})
+    into.load_state_dict(pipe.model.state_dict())
+    variant = DetectionPipeline(model=into, hv_method="pallas_windowed", **kw)
+    # the backbone on a 1.5 m corner of the scene: it only has to run
+    corner = np.all(scene.points[:, [0, 2]] < scene.points[:, [0, 2]].min(0) + 1.5, 1)
+    small = default.prepare_scene(scene.points[corner], scene.rgb[corner])
+    assert bool(torch.isfinite(variant.backbone(small)).all())
+    args = default.prepare_scene(scene.points, scene.rgb)
+    assert args.grid_shape[0] % 32 == 0
+    valid = args.valid.numpy() > 0
+    points_w = args.coords_w.numpy()[valid]
+    xyz, scl, prob, cls = perfect_predictions(scene, points_w)
+    rows = torch.from_numpy(encode_joint_head_rows(
+        points_w, xyz, scl, prob > 0.5, cls, len(valid)))
+    want = default.tail(rows, args.coords_w, args.valid, args.grid_shape)
+    got = variant.tail(rows, args.coords_w, args.valid, args.grid_shape)
+    assert calls == ["into", "into", "windowed"]
+    n = int(want["n_boxes"])
+    assert n == int(got["n_boxes"]) == 3
+    torch.testing.assert_close(got["classes"][:n], want["classes"][:n])
+    torch.testing.assert_close(got["boxes"][:n], want["boxes"][:n], rtol=0,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="hv_method"):
+        DetectionPipeline(model=pipe.model, hv_method="xla", device="cpu")
+
+
 def test_default_device_is_the_gpu():
     model = DenseMinkUNet(3, OUT, layers=(1,) * 8, planes=TINY_PLANES,
                           init_dim=8)

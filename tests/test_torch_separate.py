@@ -3,6 +3,8 @@ SeparateDetectionPipeline(backbone="dense", conv_impl="xla"), on the planted
 three-category scene of tests/test_separate_eval.py:199-257 (2 x 1.2 x 2 m,
 4,000 background points, 2 boxes, res 0.05 m)."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -147,6 +149,41 @@ def test_nonlazy_equals_lazy(setup):
     for c in range(len(CATS)):
         np.testing.assert_allclose(out["boxes"][c, :n[c]].numpy(),
                                    lazy["boxes"][c, :n[c]].numpy(), atol=RES)
+
+
+def test_variants_give_the_default_detections(setup, monkeypatch):
+    """up_impl="into" in every category's model (through the model's
+    config()) and hv_method="pallas_windowed" for the splats, over a vote
+    grid of 32-cell x buckets: the variant runs every category's into-convs
+    and finds the default routes' detections."""
+    import canonicalvoting_tpu_torch.models.dense_unet as du
+    import canonicalvoting_tpu_torch.ops.hough_voting as thv
+
+    state_dicts, _, default, args, planted, _, _ = setup
+    calls, real_up, real_splat = [], du.tiled_up2_into, thv.hv_splat_windowed
+    monkeypatch.setattr(du, "tiled_up2_into", lambda *a, **k: calls.append(
+        "into") or real_up(*a, **k))
+    monkeypatch.setattr(thv, "hv_splat_windowed", lambda *a, **k: calls.append(
+        "windowed") or real_splat(*a, **k))
+    variant = SeparateDetectionPipeline(
+        model=DenseMinkUNet(3, 8, up_impl="into", **SMALL),
+        state_dicts=state_dicts, categories=CATS, res=RES, num_rots=ROTS,
+        cap_multiple=512, peel=default.peel, hv_method="pallas_windowed",
+        device="cpu")
+    assert variant.net.up_impl == "into"
+    gs = args.grid_shape
+    args = dataclasses.replace(args, grid_shape=(-(-gs[0] // 32) * 32,) + gs[1:])
+    heads = torch.as_tensor(planted)
+    want, got = default.tail(heads, args), variant.run_scene(args, planted=heads)
+    assert calls[:2 * len(CATS)] == ["into"] * 2 * len(CATS)
+    assert calls.count("windowed") == len(CATS)
+    assert want["n_boxes"].tolist()[:2] >= [1, 1]
+    torch.testing.assert_close(got["n_boxes"], want["n_boxes"], rtol=0, atol=0)
+    torch.testing.assert_close(got["boxes"], want["boxes"], rtol=0, atol=1e-5)
+    assert [c for c, _, _ in variant.postprocess(got)] == \
+        [c for c, _, _ in default.postprocess(want)]
+    with pytest.raises(ValueError, match="hv_method"):
+        _pipe(hv_method="pallas_interpret")
 
 
 def test_default_device_is_the_gpu():
