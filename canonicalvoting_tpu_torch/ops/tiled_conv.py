@@ -40,14 +40,15 @@ from canonicalvoting_tpu_torch.ops.cuda_build import check, launcher
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "tiled_conv3d_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I,
-                            _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P],
+    "tiled_conv3d_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I,
+                            _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I,
+                            _P, _P, _P, _I, _P],
     "tiled_conv3d_prefolded_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I,
                                       _I, _I, _I, _P, _P, _P, _I, _P, _P],
     "tiled_down2_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I,
                            _I, _I, _I, _P, _P, _P, _I, _P, _P],
-    "tiled_up2_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "tiled_up2_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "tiled_up2_into_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I,
                               _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "tiled_block3d_launch": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
@@ -107,6 +108,36 @@ def _check_occ(occ: Optional[torch.Tensor], shape) -> None:
 
 def _interior(shape) -> Tuple[int, int, int]:
     return shape[0] - 2 * MX, shape[1] - 2 * MY, shape[2] - 2 * MZ
+
+
+def _check_cells(shape) -> None:
+    """The occupied-row kernels keep a grid's cell index in 32 bits."""
+    if shape[0] * shape[1] * shape[2] >= 2 ** 31:
+        raise ValueError(f"grid {tuple(shape[:3])} has 2^31 cells or more")
+
+
+# the occupied-row kernels' reduction step: 32 input channels
+K_CHUNK = 32
+# the conv's K splits, for calls whose live rows are too few to fill the
+# card (the kernel picks the count from them): at most MAX_SPLITS, in a
+# float32 scratch of at most SPLIT_BYTES
+MAX_SPLITS = 8
+SPLIT_BYTES = 128 << 20
+
+
+def _k_major(w: torch.Tensor, x: torch.Tensor, parities: bool = False):
+    """(taps, Cin, Cout) weights -> K-major rows in x's dtype and device for
+    the occupied-row kernels, Cin zero-padded to a multiple of K_CHUNK:
+    (Cout, taps, Cpad) for a conv, or (8, Cout, Cpad) with ``parities`` for
+    the up. One copy casts and transposes. Returns (rows, Cpad)."""
+    taps, cin, cout = w.shape
+    cpad = -(-cin // K_CHUNK) * K_CHUNK
+    shape, src = (((taps, cout, cpad), w.permute(0, 2, 1)) if parities
+                  else ((cout, taps, cpad), w.permute(2, 0, 1)))
+    rows = (torch.empty if cpad == cin else torch.zeros)(
+        shape, dtype=x.dtype, device=x.device)
+    rows[..., :cin].copy_(src)
+    return rows, cpad
 
 
 def _check_tiles(tiles: torch.Tensor, x: torch.Tensor, dims, tile_shape) -> None:
@@ -357,24 +388,33 @@ def tiled_conv3d(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
         return tiled_conv3d_plain(x, w, tiles, kernel_size=k, residual=residual,
                                   res_w=res_w, res_scale=res_scale,
                                   res_bias=res_bias, **kw)
+    _check_cells(x.shape)
     dev = x.device
     out = torch.zeros(x.shape[:3] + (cout,), dtype=x.dtype, device=dev)
     res = None if residual is None else residual.to(x.dtype).contiguous()
-    rw = _like(res_w, x)
-    rs = rb = None
-    if rw is not None:
+    cin = x.shape[3]
+    wt, cpad = _k_major(w, x)
+    rwt, crpad, rs, rb = None, 0, None, None
+    if res_w is not None:
+        rwt, crpad = _k_major(res_w[None], x)
         rs = _f32(res_scale if res_scale is not None
                   else torch.ones(cout), dev)
         rb = _f32(res_bias if res_bias is not None
                   else torch.zeros(cout), dev)
-    wf, sc, bi, oc = _like(w, x), _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
-    cells = tile_shape[0] * tile_shape[1] * tile_shape[2]
+    sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
+    n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
+    rows = torch.empty(n_rows + 2, dtype=torch.int32, device=dev)
+    extra = int(rwt is not None)  # a slice for the fused 1x1's result
+    s_max = max(1, min(MAX_SPLITS, k ** 3 * cpad // K_CHUNK,
+                       SPLIT_BYTES // (4 * n_rows * cout) - extra))
+    part = None if s_max == 1 else torch.empty(
+        (s_max + extra) * n_rows * cout, dtype=torch.float32, device=dev)
     rc = _launcher("tiled_conv3d_launch")(
-        x.data_ptr(), x.shape[3], *x.shape[:3], wf.data_ptr(),
-        k, cout, tiles.data_ptr(), tiles.shape[0] * cells, *tile_shape,
-        _ptr(sc), _ptr(bi), _ptr(oc), _ptr(res),
-        0 if res is None else res.shape[3], _ptr(rw), _ptr(rs), _ptr(rb),
-        int(relu_out), out.data_ptr(), _stream())
+        x.data_ptr(), cin, *x.shape[:3], wt.data_ptr(), cpad, k, cout,
+        tiles.data_ptr(), n_rows, *tile_shape, _ptr(sc), _ptr(bi), _ptr(oc),
+        _ptr(res), 0 if res is None else res.shape[3], _ptr(rwt), crpad,
+        _ptr(rs), _ptr(rb), int(relu_out), rows.data_ptr(), out.data_ptr(),
+        _ptr(part), s_max, _stream())
     check(rc, "tiled_conv3d")
     tiled_conv3d.launches += 1
     return out
@@ -487,18 +527,21 @@ def tiled_up2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
               relu_out=relu_out)
     if _route(x) == "plain":
         return tiled_up2_plain(x, w, tiles, skip=skip, skip_c=skip_c, **kw)
+    _check_cells(fshape)
     dev = x.device
     cout = w.shape[2]
     out = torch.zeros(fshape + (cout + skip_c,), dtype=x.dtype, device=dev)
     sk = None if skip is None else skip.to(x.dtype).contiguous()
-    wf, sc, bi, oc = _like(w, x), _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
-    cells = tile_shape[0] * tile_shape[1] * tile_shape[2]
+    wt, cpad = _k_major(w, x, parities=True)
+    sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
+    n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
+    rows = torch.empty(n_rows // 8 + 2, dtype=torch.int32, device=dev)
     rc = _launcher("tiled_up2_launch")(
-        x.data_ptr(), x.shape[3], *x.shape[:3], wf.data_ptr(),
-        cout, tiles.data_ptr(), tiles.shape[0] * cells, *tile_shape, *fshape,
+        x.data_ptr(), x.shape[3], *x.shape[:3], wt.data_ptr(), cpad, cout,
+        tiles.data_ptr(), n_rows, *tile_shape, *fshape,
         _ptr(sc), _ptr(bi), _ptr(oc), _ptr(sk),
         0 if sk is None else sk.shape[3], skip_c, int(relu_out),
-        out.data_ptr(), _stream())
+        rows.data_ptr(), out.data_ptr(), _stream())
     check(rc, "tiled_up2")
     tiled_up2.launches += 1
     return out

@@ -10,9 +10,14 @@ joint path, the separate path's prefolded stem, the non-lazy tail's
 up_impl="into" and the windowed splat of hv_method="pallas_windowed"),
 holds it against its plain PyTorch version, and times kernel, plain
 version, the library call computing the same function where there is one,
-and the card's bound for the work. The fused BasicBlock kernel, which no
-path runs, is held against its plain version and the two-conv output on
-the recorded input of each of the joint pass's 23 blocks.
+the zero fill of the output grid inside the wrapper, and the card's bound
+for the work. The occupied-row kernels (tiled_conv3d, tiled_up2) must also
+give bitwise-equal outputs on a repeated call, and equal their plain
+versions at one L0 and one L1 configuration on random inputs that are
+non-zero at unoccupied cells too (x, a plain residual, the skip). The
+fused BasicBlock kernel, which no path runs, is held against its plain
+version and the two-conv output on the recorded input of each of the joint
+pass's 23 blocks.
 Phase 2 drives the joint inference path at full MinkUNet34C width on three
 synthetic scenes (random weights from a seed; the tail decodes planted head
 rows, so every scene carries boxes) and checks from the launch counters that
@@ -592,6 +597,79 @@ def phase1_blocks(pipe, args, s, failures):
     blocks.clear()
 
 
+# the kernels whose rows are compacted to the occupied ones: their outputs
+# must not depend on the row order the compaction's atomics give
+ROW_KERNELS = ("tiled_conv3d", "tiled_up2")
+# the wrappers that zero-fill a fresh output grid
+FILLED = ("tiled_conv3d", "tiled_conv3d_prefolded", "tiled_down2", "tiled_up2")
+
+
+def fill_call(r):
+    """The zero fill of the output grid that the wrapper allocates."""
+    import torch
+
+    name, (x, w), kw = r["name"], r["args"][:2], r["kw"]
+    cout = w.shape[2]
+    if name == "tiled_down2":
+        shape = tuple(kw["occ"].shape) + (cout,)
+    elif name == "tiled_up2":
+        shape = tuple(kw["occ"].shape) + (cout + kw.get("skip_c", 0),)
+    else:
+        shape = tuple(x.shape[:3]) + (cout,)
+    return lambda: torch.zeros(shape, dtype=x.dtype, device=x.device)
+
+
+def unmasked_inputs(r):
+    """(args, kw) of a recorded call with random inputs that are non-zero
+    at unoccupied cells too: x, and the plain residual or the skip. The
+    model's own inputs are zero there, so they cannot show a compaction
+    that drops the rows whose output is the residual alone."""
+    import torch
+
+    a, kw = r["args"], dict(r["kw"])
+    g = torch.Generator(device=a[0].device).manual_seed(1)
+
+    def rand_like(t):
+        return torch.randn(t.shape, generator=g, device=t.device).to(t.dtype)
+
+    for key in ("residual", "skip"):
+        if kw.get(key) is not None:
+            kw[key] = rand_like(kw[key])
+    return (rand_like(a[0]),) + tuple(a[1:]), kw
+
+
+def unmasked_checks(records, kern, plain, levels, failures):
+    """One L0 and one L1 configuration of each occupied-row kernel (the
+    conv with a plain residual) on unmasked random inputs, against the
+    plain version, and a repeated call bitwise equal."""
+    import torch
+
+    done = set()
+    for key, r in records.items():
+        name = r["name"]
+        lvl = levels.get(tuple(r["kw"]["occ"].shape)) if name in ROW_KERNELS else None
+        if lvl not in (0, 1) or (name, lvl) in done:
+            continue
+        if name == "tiled_conv3d" and (r["kw"].get("residual") is None
+                                       or r["kw"].get("res_w") is not None):
+            continue
+        done.add((name, lvl))
+        a, kw = unmasked_inputs(r)
+        got, again = kern[name](*a, **kw), kern[name](*a, **kw)
+        want = plain[name](*a, **kw)
+        err, scale = rel_err(got, want)
+        bitwise = bool(torch.equal(got, again))
+        if not (err <= CONV_REL_TOL * scale and bitwise):
+            failures.append((key, "unmasked inputs", err, CONV_REL_TOL * scale, bitwise))
+        emit({"phase": 1, "kernel": name, "check": "unmasked_inputs", "level": lvl,
+              "config": [str(v) for v in key[1:]], "max_abs_err": err,
+              "ref_max": scale, "tol": CONV_REL_TOL * scale,
+              "bitwise_repeat": bitwise})
+        del got, again, want, a, kw
+    if len(done) != 2 * len(ROW_KERNELS):
+        failures.append(("unmasked inputs: checked only", sorted(done)))
+
+
 def phase1(pipe, scene):
     import torch
 
@@ -616,14 +694,23 @@ def phase1(pipe, scene):
     del sep
     occ_of = {tuple(r["kw"]["occ"].shape): r["kw"]["occ"]
               for r in records.values() if r["name"] == "tiled_conv3d"}
+    # level of each occupancy grid: L0 is the largest
+    levels = {shape: i for i, shape in enumerate(sorted(
+        occ_of, key=lambda sh: -sh[0] * sh[1] * sh[2]))}
     summary = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                    "bound_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-                   "operations": 0.0} for n in kern}
+                   "operations": 0.0,
+                   "fill_ms": 0.0 if n in FILLED else None} for n in kern}
     failures = []
     for key, r in records.items():
         name, a, kw = r["name"], r["args"], r["kw"]
         got, want = kern[name](*a, **fresh(kw)), plain[name](*a, **fresh(kw))
         extra = {}
+        if name in ROW_KERNELS:
+            extra["level"] = levels[tuple(kw["occ"].shape)]
+            extra["bitwise_repeat"] = bool(torch.equal(got, kern[name](*a, **kw)))
+            if not extra["bitwise_repeat"]:
+                failures.append((key, "a repeated call differs"))
         if name == "hv_splat_windowed":
             extra["bitwise_equal_hv_splat"] = bool(torch.equal(got, hs.hv_splat(
                 *a, **{k: v for k, v in kw.items() if k != "x_bucket"})))
@@ -655,6 +742,7 @@ def phase1(pipe, scene):
             extra["dest_copy_ms"] = time_ms(lambda: du.into_dest(
                 skip, skc, a[1].shape[2]), 5)
             del skip
+        fill_ms = time_ms(fill_call(r), 5) if name in FILLED else None
         lib = library_call(r)
         lib_ms = time_ms(lib, 3) if lib is not None else None
         if name.startswith("hv_splat"):
@@ -674,11 +762,14 @@ def phase1(pipe, scene):
         s["bound_ms"] += bound_ms * n
         s[bound_by] += bound_ms * n
         s["library_ms"] = None if lib_ms is None else s["library_ms"] + lib_ms * n
+        if fill_ms is not None:
+            s["fill_ms"] += fill_ms * n
         emit({"phase": 1, "kernel": name, "config": [str(v) for v in key[1:]],
               "per_scene": n, "max_abs_err": err, "ref_max": scale,
-              "tol": tol, "kernel_ms": ms, "plain_ms": plain_ms,
-              "library_ms": lib_ms, "bound_ms": bound_ms,
+              "tol": tol, "kernel_ms": ms, "fill_ms": fill_ms,
+              "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, **extra})
+    unmasked_checks(records, kern, plain, levels, failures)
     records.clear()
     occ_of.clear()
     torch.cuda.empty_cache()
@@ -1202,7 +1293,8 @@ def main() -> int:
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
-                        "library_ms": s["library_ms"]})
+                        "library_ms": s["library_ms"],
+                        "fill_ms": s["fill_ms"]})
         if name == "tiled_block3d":
             kernels[-1]["launches_from"] = (
                 "phase 1: one check a BasicBlock of a joint pass; no path "

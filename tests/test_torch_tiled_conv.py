@@ -54,7 +54,7 @@ def _t(a):
 
 
 @pytest.mark.parametrize("case", ["k3_residual", "k3_fused_1x1", "k5_stem",
-                                  "k3_plain"])
+                                  "k3_plain", "k3_unmasked_residual"])
 def test_tiled_conv3d_matches_jax(rng, case):
     dims, cin, cout = (16, 8, 32), 8, 16
     k, ts, group = 3, (4, 4, 8), 4
@@ -69,6 +69,9 @@ def test_tiled_conv3d_matches_jax(rng, case):
     if case == "k3_residual":
         res = _margin(rng.randn(*dims, cout).astype(np.float32)
                       * occ[..., None])
+    elif case == "k3_unmasked_residual":
+        # non-zero at unoccupied cells too: there the output is relu(res)
+        res = _margin(rng.randn(*dims, cout).astype(np.float32))
     elif case == "k3_fused_1x1":
         res = _margin(x)
         res_w = (rng.randn(cin, cout) * 0.3).astype(np.float32)
@@ -126,12 +129,14 @@ def test_tiled_down2_matches_jax(rng):
     assert np.abs(got.numpy()).max() > 0.1
 
 
-def test_tiled_up2_matches_jax(rng):
+def _check_up2(rng, masked_skip):
     fdims, cin, cout, skip_c = (16, 16, 32), 8, 6, 4
     cdims = tuple(d // 2 for d in fdims)
     xc, _, _ = _sparse_grid(rng, cdims, cin, 80)
     _, occ, fine = _sparse_grid(rng, fdims, 1, 300)
-    skip = rng.randn(*fdims, skip_c + 2).astype(np.float32) * occ[..., None]
+    skip = rng.randn(*fdims, skip_c + 2).astype(np.float32)
+    if masked_skip:
+        skip = skip * occ[..., None]
     w = (rng.randn(8, cin, cout) * 0.2).astype(np.float32)
     scale, bias = _affine(rng, cout)
     ts, group = (4, 4, 16), 2
@@ -150,6 +155,15 @@ def test_tiled_up2_matches_jax(rng):
     np.testing.assert_allclose(got.numpy(),
                                np.asarray(want)[..., :cout + skip_c], **TOL)
     assert np.abs(got.numpy()[..., :cout]).max() > 0.1
+
+
+def test_tiled_up2_matches_jax(rng):
+    _check_up2(rng, masked_skip=True)
+
+
+def test_tiled_up2_unmasked_skip_matches_jax(rng):
+    """The skip is copied into every listed fine cell, occupied or not."""
+    _check_up2(rng, masked_skip=False)
 
 
 def test_wrappers_refuse_foreign_devices():
