@@ -11,24 +11,51 @@
 // [w, w cos, w sin, w sx, w sy, w sz] (the rotation and scale votes that
 // hough_voting normalizes by the objectness sum).
 //
-// Design. One thread per (rotation, point) vote, points fastest so a warp
-// reads neighbouring point rows. The math is the JAX XLA path's, in f32
-// (the TPU kernel rounds its tent products to bf16; this one does not).
 // Sums are deterministic: each corner weight is converted to a 64-bit fixed
 // point number with 32 fractional bits and added with an integer atomicAdd.
 // Integer addition is associative, so the grid is bitwise the same whatever
-// order the votes land in, and a weight of 2^-8 or more converts exactly.
-// A second pass turns the fixed point grid into float32. The cos and sin
-// channels are signed: two's-complement sums through the unsigned atomicAdd
-// are exact, and the conversion reads them back as signed. The sums stay
-// exact while a cell's |sum| is below 2^31 (2^63 at 2^32 per unit): a hot
-// cell of ~2e3 votes of scale ~5 m is far inside.
+// order or grouping the votes land in, and a weight of 2^-8 or more converts
+// exactly. A second pass turns the fixed point grid into float32. The cos
+// and sin channels are signed: two's-complement sums through the unsigned
+// atomicAdd are exact, and the conversion reads them back as signed. The
+// sums stay exact while a cell's |sum| is below 2^31 (2^63 at 2^32 per
+// unit): a hot cell of ~2e3 votes of scale ~5 m is far inside. The math is
+// the JAX XLA path's, in f32 (the TPU kernel rounds its tent products to
+// bf16; these do not).
 //
-// Bound. Each vote is a few dozen f32 operations and 8 * CH atomics, and the
-// grid is written once, so at ScanNet scale the splat is bound by the
-// atomics' traffic to L2 rather than by device memory or arithmetic; six
-// channels carry six times the atomics of one. The 64-bit scratch is
-// 8 * CH bytes a cell (302 MB for the six channels of a 256 x 96 x 256 grid).
+// The objectness splat (obj_vote_kernel, channels = 1). One thread per
+// (category, rotation, point) vote, the categories on the grid's y axis so
+// the separate evaluator's nine splat in one launch into one (C, cells)
+// scratch. What bounds it is the atomics, not bytes or arithmetic: up to
+// 7.4 M votes x 8 corners a ScanNet-scale scene, and Hough voting makes
+// them collide by design (a box's points at its true rotation, and points
+// whose predicted offset is small at every rotation, hit the same cells),
+// so same-address atomics serialize in L2. The kernel therefore adds each
+// warp's votes that share a floor cell in registers first: __match_any_sync
+// groups the lanes by floor cell, the group's 8 corner weights are summed
+// in registers (64-bit integer adds: the same bits in any grouping), and
+// the sums go out in 8 atomics, skipping sums of zero. A warp that is one
+// group (32 votes in one cell) sums by recursive halving and issues its 8
+// atomics from 8 lanes at once; other groups sum over a tree in lane order
+// and their lowest lane issues them. (redux.sync over 22-bit pieces in
+// place of the tree measured slower on the H100; PERF.md.)
+// Threads run rotations fastest, so a warp holds 32 consecutive rotations of
+// one point (or the tail and head of two): its votes lie 3 degrees apart on
+// one arc of the point's offset radius, so neighbours share cells for any
+// radius of a few cells, and all 32 fall in one cell where the offset is
+// under a cell. The whole-warp path serves that last case only, which is a
+// property of the head rows: the planted rows that chip_smoke.py decodes
+// give their background points an offset of exactly 0 (65% of the joint
+// scene's warps, 79% of the separate path's are one group), while the
+// random-weight backbones' own head rows make almost no warp one group
+// (1e-5); there it costs one warp vote a warp, and rotations fastest
+// still issues 2.6-6.9x fewer atomics than points fastest (PERF.md).
+//
+// vote6_kernel (channels = 6, the non-lazy tail) is one thread per
+// (rotation, point) vote, points fastest, with 8 x 6 atomics a vote. Each
+// vote is a few dozen f32 operations and the grid is written once, so it
+// is bound by the atomics' traffic to L2; the 64-bit scratch is 8 * CH bytes
+// a cell (302 MB for the six channels of a 256 x 96 x 256 grid).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,17 +116,103 @@ __device__ __forceinline__ unsigned long long to_fixed(float w) {
   return (unsigned long long)__float2ll_rn(w * kFixedScale);
 }
 
-template <int CH>
-__global__ void vote_kernel(const float* __restrict__ points,
-                            const float* __restrict__ xyz,
-                            const float* __restrict__ scale,
-                            const float* __restrict__ obj,
-                            const float* __restrict__ valid, int n,
-                            const float* __restrict__ cosv,
-                            const float* __restrict__ sinv, int num_rots,
-                            const float* __restrict__ corner,
-                            const int* __restrict__ dims, float res, int gy,
-                            int gz, unsigned long long* __restrict__ acc) {
+// Sums each lane's v over its group of lanes (peers: the lanes of the
+// warp with the same key, from __match_any_sync): the group's lowest lane
+// ends with the group's sums, the other lanes with partial sums. A tree in
+// lane order: each round, every lane still in the tree adds the partial sum
+// of the next group member still in it, and every other member drops out.
+// Every lane of the warp runs it.
+template <int N>
+__device__ __forceinline__ void sum_peers(unsigned peers, unsigned long long (&v)[N]) {
+  const int lane = threadIdx.x & 31;
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & (0xfffffffeu << lane);
+  while (__any_sync(0xffffffffu, above != 0u)) {
+    const int next = __ffs(above) - 1;  // -1: none left above this lane
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const unsigned long long t = __shfl_sync(0xffffffffu, v[j], next < 0 ? lane : next);
+      if (next >= 0) v[j] += t;
+    }
+    above &= ~__ballot_sync(0xffffffffu, rank & 1u);
+    rank >>= 1;
+  }
+}
+
+// The 8 sums over the whole warp, when all 32 lanes share one group: each
+// round a lane trades half of its values with the lane `off` away and keeps
+// the sums of the other half (18 shuffles of 32 bits, against the tree's up
+// to 80). Lane l ends with the total of value (l >> 2) & 7.
+__device__ __forceinline__ unsigned long long warp_sums8(const unsigned long long (&v)[8]) {
+  const int lane = threadIdx.x & 31;
+  const bool hi4 = lane & 16, hi3 = lane & 8, hi2 = lane & 4;
+  unsigned long long h4[4], h2[2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    h4[k] = (hi4 ? v[k + 4] : v[k]) + __shfl_xor_sync(0xffffffffu, hi4 ? v[k] : v[k + 4], 16);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    h2[k] = (hi3 ? h4[k + 2] : h4[k]) + __shfl_xor_sync(0xffffffffu, hi3 ? h4[k] : h4[k + 2], 8);
+  unsigned long long s = (hi2 ? h2[1] : h2[0]) + __shfl_xor_sync(0xffffffffu, hi2 ? h2[0] : h2[1], 4);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  return s;
+}
+
+__global__ void __launch_bounds__(256) obj_vote_kernel(
+    const float* __restrict__ points, const float* __restrict__ xyz,
+    const float* __restrict__ scale, const float* __restrict__ obj,
+    const float* __restrict__ valid, int n, const float* __restrict__ cosv,
+    const float* __restrict__ sinv, int num_rots, const float* __restrict__ corner,
+    const int* __restrict__ dims, float res, int gy, int gz, long long cells,
+    unsigned long long* __restrict__ acc) {
+  const int cat = blockIdx.y;  // category c: rows c of xyz, scale, obj; grid c
+  xyz += 3LL * n * cat;
+  scale += 3LL * n * cat;
+  obj += (long long)n * cat;
+  acc += cells * cat;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  int f[3] = {0, 0, 0};
+  float w1[3] = {0.f, 0.f, 0.f}, ob = 0.f;
+  bool in = false;
+  if (i < (long long)n * num_rots) {  // rotations fastest: a warp walks one point's arc
+    const int p = (int)(i / num_rots), r = (int)(i - (long long)p * num_rots);
+    in = place_vote(points, xyz, scale, obj, valid, p, cosv[r], sinv[r], corner, dims, res, f,
+                    w1, ob);
+  }
+  const int base = (f[0] * gy + f[1]) * gz + f[2];
+  // lanes out of range key apart (-1 - lane) and join no group
+  const unsigned peers = __match_any_sync(0xffffffffu, in ? base : -1 - lane);
+  unsigned long long v[8];
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+    v[b] = in ? to_fixed(corner_weight(w1, b >> 2, (b >> 1) & 1, b & 1, ob)) : 0ull;
+  if (__all_sync(0xffffffffu, peers == 0xffffffffu)) {  // one cell for the whole warp
+    const unsigned long long sum = warp_sums8(v);
+    const int b = (lane >> 2) & 7;
+    if ((lane & 3) == 0 && sum != 0ull)
+      atomicAdd(acc + base + ((b >> 2) * gy + ((b >> 1) & 1)) * gz + (b & 1), sum);
+    return;
+  }
+  sum_peers(peers, v);
+  if (!in || (peers & ((1u << lane) - 1u)) != 0u) return;
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+    if (v[b] != 0ull)
+      atomicAdd(acc + base + ((b >> 2) * gy + ((b >> 1) & 1)) * gz + (b & 1), v[b]);
+}
+
+__global__ void vote6_kernel(const float* __restrict__ points,
+                             const float* __restrict__ xyz,
+                             const float* __restrict__ scale,
+                             const float* __restrict__ obj,
+                             const float* __restrict__ valid, int n,
+                             const float* __restrict__ cosv,
+                             const float* __restrict__ sinv, int num_rots,
+                             const float* __restrict__ corner,
+                             const int* __restrict__ dims, float res, int gy,
+                             int gz, unsigned long long* __restrict__ acc) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)n * num_rots) return;
   const int r = (int)(i / n), p = (int)(i - (long long)r * n);
@@ -116,15 +229,11 @@ __global__ void vote_kernel(const float* __restrict__ points,
       for (int bz = 0; bz < 2; ++bz) {
         const float w = corner_weight(w1, bx, by, bz, ob);
         const long long cell = ((long long)(f[0] + bx) * gy + (f[1] + by)) * gz + (f[2] + bz);
-        if (CH == 1) {
-          atomicAdd(acc + cell, to_fixed(w));
-        } else {
-          const float ch[6] = {w, __fmul_rn(w, c), __fmul_rn(w, s),
-                               __fmul_rn(w, scale[3 * p]), __fmul_rn(w, scale[3 * p + 1]),
-                               __fmul_rn(w, scale[3 * p + 2])};
+        const float ch[6] = {w, __fmul_rn(w, c), __fmul_rn(w, s),
+                             __fmul_rn(w, scale[3 * p]), __fmul_rn(w, scale[3 * p + 1]),
+                             __fmul_rn(w, scale[3 * p + 2])};
 #pragma unroll
-          for (int j = 0; j < 6; ++j) atomicAdd(acc + cell * 6 + j, to_fixed(ch[j]));
-        }
+        for (int j = 0; j < 6; ++j) atomicAdd(acc + cell * 6 + j, to_fixed(ch[j]));
       }
 }
 
@@ -144,7 +253,7 @@ __global__ void vote_kernel(const float* __restrict__ points,
 // window is dropped, as the JAX kernel's canvas drops it; with the radius
 // rule none is. The tail's votes go straight to the grid (a full-width pass).
 // Each vote is placed by place_vote and weighted by corner_weight, as in
-// vote_kernel<1>, and integer sums do not depend on order: the grid equals
+// obj_vote_kernel, and integer sums do not depend on order: the grid equals
 // hv_splat's bitwise.
 
 constexpr int kZSlab = 32;
@@ -248,40 +357,50 @@ __global__ void fixed_to_float_kernel(const unsigned long long* __restrict__ acc
 
 }  // namespace
 
-// channels 1 or 6; acc: (gx*gy*gz*channels) uint64 scratch, zeroed here;
-// out: (gx, gy, gz, channels) float32. corner (3,) float32 and dims (3,)
-// int32 live on the device.
-extern "C" int hv_splat_launch(const float* points, const float* xyz,
-                               const float* scale, const float* obj,
-                               const float* valid, int n, const float* cosv,
-                               const float* sinv, int num_rots, const float* corner,
-                               const int* dims, float res, int gx, int gy, int gz,
-                               int channels, void* acc, float* out, void* stream) {
+// channels 1 (n_cat categories: xyz (n_cat, n, 3), scale (n_cat, n, 3),
+// obj (n_cat, n); acc n_cat grids) or 6 (one category); acc: (n_cat, gx,
+// gy, gz, channels) uint64 fixed point, zeroed by the caller. corner (3,)
+// float32 and dims (3,) int32, clipped to (gx, gy, gz), live on the device.
+extern "C" int hv_votes_launch(const float* points, const float* xyz, const float* scale,
+                               const float* obj, const float* valid, int n, int n_cat,
+                               const float* cosv, const float* sinv, int num_rots,
+                               const float* corner, const int* dims, float res, int gx,
+                               int gy, int gz, int channels, void* acc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (channels != 1 && channels != 6) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = (long long)gx * gy * gz * channels;
-  cudaError_t e = cudaMemsetAsync(acc, 0, total * sizeof(unsigned long long), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!((channels == 1 && n_cat >= 1 && n_cat <= 65535) || (channels == 6 && n_cat == 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)gx * gy * gz >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const long long votes = (long long)n * num_rots;
+  if (votes <= 0) return 0;
   const int nt = 256;
   const unsigned blocks = (unsigned)((votes + nt - 1) / nt);
-  unsigned long long* a = static_cast<unsigned long long*>(acc);
-  if (votes > 0 && channels == 1) {
-    vote_kernel<1><<<blocks, nt, 0, s>>>(points, xyz, scale, obj, valid, n, cosv, sinv,
-                                         num_rots, corner, dims, res, gy, gz, a);
-  } else if (votes > 0) {
-    vote_kernel<6><<<blocks, nt, 0, s>>>(points, xyz, scale, obj, valid, n, cosv, sinv,
-                                         num_rots, corner, dims, res, gy, gz, a);
+  auto* a = static_cast<unsigned long long*>(acc);
+  if (channels == 6) {
+    vote6_kernel<<<blocks, nt, 0, s>>>(points, xyz, scale, obj, valid, n, cosv, sinv, num_rots,
+                                       corner, dims, res, gy, gz, a);
+  } else {
+    obj_vote_kernel<<<dim3(blocks, n_cat), nt, 0, s>>>(
+        points, xyz, scale, obj, valid, n, cosv, sinv, num_rots, corner, dims, res, gy, gz,
+        (long long)gx * gy * gz, a);
   }
-  fixed_to_float_kernel<<<(unsigned)((total + nt - 1) / nt), nt, 0, s>>>(
-      static_cast<const unsigned long long*>(acc), total, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// acc: total int64 fixed point sums -> out: total float32
+extern "C" int hv_fixed_to_float_launch(const void* acc, long long total, float* out,
+                                        void* stream) {
+  const int nt = 256;
+  if (total > 0)
+    fixed_to_float_kernel<<<(unsigned)((total + nt - 1) / nt), nt, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const unsigned long long*>(acc), total, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // order (n,) int32: the points sorted by segment key; seg_start / seg_end
 // (gy * nb + gy,) int32: each segment's range in that order, the gy * nb
-// windowed segments first, then the gy tail segments; acc and out as
-// hv_splat_launch's, one channel
+// windowed segments first, then the gy tail segments; acc: (gx*gy*gz)
+// uint64 scratch, zeroed here; out: (gx, gy, gz) float32
 extern "C" int hv_splat_windowed_launch(const float* points, const float* xyz,
                                         const float* scale, const float* obj,
                                         const float* valid, int n, const int* order,

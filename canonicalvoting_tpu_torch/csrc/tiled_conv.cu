@@ -15,13 +15,13 @@
 // grids on the card are refused by the wrappers, the plain versions serve
 // them on the CPU.
 //
-// tiled_conv3d and tiled_up2: occupied-row GEMMs (conv_rows_kernel,
-// up_rows_kernel). Their function needs the MACs of occupied rows only:
-// an unoccupied output cell is masked to zero (plus the plain residual, if
-// any), and an unoccupied coarse parent has no occupied child. The listed
-// tiles hold 5-26% occupied cells at the backbone's levels and every listed
-// tile holds at least one, so skipping empty 64-row blocks saves nothing;
-// the rows are compacted instead:
+// tiled_conv3d, its prefolded stem and tiled_up2: occupied-row GEMMs
+// (conv_rows_kernel, up_rows_kernel). Their function needs the MACs of
+// occupied rows only: an unoccupied output cell is masked to zero (plus the
+// plain residual, if any), and an unoccupied coarse parent has no occupied
+// child. The listed tiles hold 5-26% occupied cells at the backbone's
+// levels and every listed tile holds at least one, so skipping empty 64-row
+// blocks saves nothing; the rows are compacted instead:
 // - compact_kernel lists the live rows of each call on the card (a warp
 //   ballot scan per block and one atomicAdd per block into a row buffer and
 //   a device-side count; no host sync). The GEMM grid is sized from the
@@ -60,11 +60,24 @@
 //   every listed fine cell with 16-byte vectors.
 // What bounds them: at the sparse levels the listed cells' bytes (inputs
 // gathered per tap mostly hit L2); the weights are re-read from L2 by every
-// row block, which dominates at L3 and L4, where the calls are also short
-// enough for the host's launches to matter. The wrapper's zero fill of the
-// whole output grid is outside these kernels.
+// row block, which dominates at L3 and L4 (there the host issues a call
+// faster than the card runs it). The wrapper's zero fill of the whole
+// output grid is outside these kernels.
 //
-// DOWN, PREF and UPI, the modes of tc_kernel, are implicit GEMMs over the
+// The prefolded stem (tiled_conv3d_prefolded) is the same occupied-row GEMM
+// over fold_dydz's grid: the (dy, dz) taps of the k = 5 stem already sit in
+// its channels (lane c*k*k + dz*k + dy, cf = 80 for 3 input channels, a
+// multiple of 8 so the 16-byte loads stay aligned), so the loader walks the
+// k x-offsets only (offset (dx - h) * Ym * Zm cells) over cpad = cf rounded
+// up to 32 channels (the loads past cf are zero-filled): 5 taps x 3 chunks =
+// 15 K steps, against 125 x 1 for the tiled k=5 stem. The weights arrive
+// folded and K-major, (cout, k, cpad) in the fold's row order (dx; c, dz,
+// dy), built once per category by the separate evaluator
+// (prefold_stem_weights). The stem lists 5.6% of
+// its cells as occupied, so compaction cuts its MACs 17x; its epilogue is
+// BN affine, mask, ReLU, with no residual and no K split (937 row blocks).
+//
+// DOWN and UPI, the modes of tc_kernel, are implicit GEMMs over the
 // flattened cells of all listed tiles (row = tile * cells + local cell, z
 // fastest) on WMMA bf16 tiles with f32 accumulation. Columns are output
 // channels; the reduction walks taps x input channels (kg = tap * cin + c,
@@ -72,13 +85,6 @@
 // constant offset, because the grids' zero margins absorb every halo read.
 // They run the MACs of every listed cell and stage each operand slice
 // through shared memory with no overlap of loads and math.
-//
-// The prefolded stem (PREF) is that GEMM over fold_dydz's grid: the (dy, dz)
-// taps of the k = 5 stem already sit in its channels (lane c*k*k + dz*k +
-// dy, padded to a multiple of 8 so the 16-byte operand loads stay aligned),
-// so only the k x-offsets remain as taps (offset (dx - h) * Ym * Zm cells)
-// and the reduction is k * Cf, with the weights in _fold_w's prefolded row
-// order (dx; c, dz, dy).
 //
 // tiled_up2_into (UPI) is the transposed conv's GEMM over the coarse parents
 // of the listed fine tiles (8 * Cout columns, one per child parity), writing
@@ -148,15 +154,15 @@ __device__ __forceinline__ long long flat(const Grid& g, int x, int y, int z) {
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // ---------------------------------------------------------------------------
-// tc_kernel: the WMMA implicit GEMMs of tiled_down2 (DOWN), the prefolded
-// stem (PREF) and tiled_up2_into (UPI). A block owns TM = 64 rows x TN = 64
+// tc_kernel: the WMMA implicit GEMMs of tiled_down2 (DOWN) and
+// tiled_up2_into (UPI). A block owns TM = 64 rows x TN = 64
 // columns; each of its 4 warps keeps 16 rows x 64 columns in 4 accumulator
 // fragments. Operands are staged through shared memory in TK = 32 slices
 // with 16-byte loads where channel counts are multiples of 8.
 
 constexpr int TM = 64, TN = 64, TK = 32, TT = 128;
 constexpr int LDA = TK + 8, LDB = TN + 8, LDC = TN + 4;
-enum { DOWN = 1, PREF = 3, UPI = 4 };
+enum { DOWN = 1, UPI = 4 };
 
 template <int MODE>
 __global__ void __launch_bounds__(TT) tc_kernel(
@@ -170,12 +176,12 @@ __global__ void __launch_bounds__(TT) tc_kernel(
   __shared__ __align__(128) __nv_bfloat16 Bs[TK * LDB];
   __shared__ __align__(128) float Cs[TM * LDC];
   __shared__ long long a_base[TM];  // element offset of the row's tap-0 input
-  __shared__ long long o_cell[TM];  // output cell (DOWN/PREF), valid flag (UPI)
+  __shared__ long long o_cell[TM];  // output cell (DOWN), valid flag (UPI)
   __shared__ int pc[TM][3];         // UPI: parent interior coordinates
   constexpr bool kUp = MODE == UPI;
   const int tid = threadIdx.x, warp = tid / 32;
   const int n0 = blockIdx.y * TN;
-  const int K = kUp ? cin : MODE == PREF ? k * cin : k * k * k * cin;
+  const int K = kUp ? cin : k * k * k * cin;
   const int N = kUp ? 8 * cout : cout;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
@@ -194,11 +200,9 @@ __global__ void __launch_bounds__(TT) tc_kernel(
       }
     } else {
       int ix, iy, iz;
-      if (row_cell(tl, r, ix, iy, iz)) {
-        const int h = MODE == DOWN ? 0 : k / 2;  // prefolded: x taps only
-        const int st = MODE == DOWN ? 2 : 1;
+      if (row_cell(tl, r, ix, iy, iz)) {  // DOWN: the fine cell 2o, taps d in {0, 1}^3
         oc = flat(gout, ix + MX, iy + MY, iz + MZ);
-        base = flat(gin, st * ix + MX - h, st * iy + MY, st * iz + MZ) * cin;
+        base = flat(gin, 2 * ix + MX, 2 * iy + MY, 2 * iz + MZ) * cin;
       }
     }
     a_base[tid] = base;
@@ -220,9 +224,7 @@ __global__ void __launch_bounds__(TT) tc_kernel(
           long long off = kg;
           if (!kUp) {
             const int tap = kg / cin, c = kg - tap * cin;
-            const int dx = MODE == PREF ? tap : tap % k;
-            const int dy = MODE == PREF ? 0 : (tap / k) % k;
-            const int dz = MODE == PREF ? 0 : tap / (k * k);
+            const int dx = tap % k, dy = (tap / k) % k, dz = tap / (k * k);
             off = ((long long)dx * gin.ym + dy) * gin.zm * cin + (long long)dz * cin + c;
           }
           val = *reinterpret_cast<const uint4*>(x + a_base[m] + off);
@@ -237,9 +239,7 @@ __global__ void __launch_bounds__(TT) tc_kernel(
           long long off = kg;
           if (!kUp) {
             const int tap = kg / cin, c = kg - tap * cin;
-            const int dx = MODE == PREF ? tap : tap % k;
-            const int dy = MODE == PREF ? 0 : (tap / k) % k;
-            const int dz = MODE == PREF ? 0 : tap / (k * k);
+            const int dx = tap % k, dy = (tap / k) % k, dz = tap / (k * k);
             off = ((long long)dx * gin.ym + dy) * gin.zm * cin + (long long)dz * cin + c;
           }
           val = x[a_base[m] + off];
@@ -516,23 +516,26 @@ __global__ void __launch_bounds__(256) compact_kernel(Tiles tl, Grid g, const fl
 }
 
 // One K phase of a conv block: x's taps (k^3 of them, x-fastest, offsets
-// from the row's cell) by 32-channel chunks against wt (cout, k^3, cpad).
-// The fused 1x1 downsample is the same loader with k = 1 over the residual.
+// from the row's cell; with xonly the k x offsets alone, over the prefolded
+// stem's fold) by 32-channel chunks against wt (cout, taps, cpad). The fused
+// 1x1 downsample is the same loader with k = 1 over the residual.
 struct TapLoader {
   const __nv_bfloat16* x;
-  int cin, k, vec;
+  int cin, k, xonly, vec;
   Grid g;
   const __nv_bfloat16* wt;
   int cpad, cout, n0;
   const int* cell;  // shared: the rows' cells, -1 past the live rows
 
-  __device__ __forceinline__ int steps() const { return k * k * k * (cpad / GK); }
+  __device__ __forceinline__ int taps() const { return xonly ? k : k * k * k; }
+  __device__ __forceinline__ int steps() const { return taps() * (cpad / GK); }
 
   template <int BN>
   __device__ __forceinline__ void load(int s, uint8_t* st) const {
-    const int nkc = cpad / GK, taps = k * k * k, h = k / 2;
+    const int nkc = cpad / GK, h = k / 2;
     const int tap = s / nkc, c0 = (s - tap * nkc) * GK;
-    const int dx = tap % k, dy = (tap / k) % k, dz = tap / (k * k);
+    const int dx = xonly ? tap : tap % k;
+    const int dy = xonly ? h : (tap / k) % k, dz = xonly ? h : tap / (k * k);
     const int off = ((dx - h) * g.ym + (dy - h)) * g.zm + (dz - h);
     if (vec) {
       for (int v = threadIdx.x; v < GM * (GK / 8); v += GT) {
@@ -555,7 +558,7 @@ struct TapLoader {
       const int n = v >> 2, q = v & 3, gn = n0 + n;
       const bool ok = gn < cout;
       cp_async16(sb + core_off(n, q, GK / 8),
-                 ok ? wt + ((long long)gn * taps + tap) * cpad + c0 + q * 8 : wt, ok);
+                 ok ? wt + ((long long)gn * taps() + tap) * cpad + c0 + q * 8 : wt, ok);
     }
   }
 };
@@ -611,9 +614,9 @@ __device__ __forceinline__ void ring_gemm(const TapLoader& ld, int first, int st
 
 struct ConvRows {
   const __nv_bfloat16* x;
-  int cin, cpad, k;
+  int cin, cpad, k, xonly;  // xonly: the prefolded stem's k x taps
   Grid g;
-  const __nv_bfloat16* wt;  // (cout, k^3, cpad)
+  const __nv_bfloat16* wt;  // (cout, k^3 or k, cpad)
   int cout;
   Tiles tl;
   const int* rows;
@@ -666,8 +669,8 @@ __global__ void __launch_bounds__(GT, 1) conv_rows_kernel(const __grid_constant_
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n0 = blockIdx.y * BN;
   const int n_live = p.count[0];
-  const TapLoader main_ld{p.x, p.cin, p.k, p.vec_a, p.g, p.wt, p.cpad, p.cout, n0, cell};
-  const TapLoader res_ld{p.res, p.cres, 1, p.vec_r, p.g, p.rwt, p.crpad, p.cout, n0, cell};
+  const TapLoader main_ld{p.x, p.cin, p.k, p.xonly, p.vec_a, p.g, p.wt, p.cpad, p.cout, n0, cell};
+  const TapLoader res_ld{p.res, p.cres, 1, 0, p.vec_r, p.g, p.rwt, p.crpad, p.cout, n0, cell};
   float acc[NH][NW / 2];
   const int n_split = k_splits(p, n_live, gridDim.y);
   const int steps = main_ld.steps();
@@ -1304,7 +1307,7 @@ extern "C" int tiled_conv3d_launch(
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* rb = static_cast<const __nv_bfloat16*>(res);
   auto* ob = static_cast<__nv_bfloat16*>(out);
-  const ConvRows p{xb, cin, cpad, k, g, static_cast<const __nv_bfloat16*>(wt), cout, tl,
+  const ConvRows p{xb, cin, cpad, k, 0, g, static_cast<const __nv_bfloat16*>(wt), cout, tl,
                    rows, count, scale, bias, occ, rb, cres, crpad,
                    static_cast<const __nv_bfloat16*>(rwt), rscale, rbias, relu,
                    cin % 8 == 0 && aligned16(x),
@@ -1329,18 +1332,36 @@ extern "C" int tiled_conv3d_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: fold_dydz's grid (xm, ym, zm, cf), cf % 8 == 0 for the vector loads;
-// w: (k, cf, cout) prefolded rows; out: (xm, ym, zm, cout)
+// x: fold_dydz's grid (xm, ym, zm, cf); wt: (cout, k, cpad) K-major folded
+// weights, cpad = cf rounded up to 32 with zero rows; rows: int32 scratch
+// of n_rows + 2; out: (xm, ym, zm, cout), the caller's zeros outside the
+// occupied listed cells
 extern "C" int tiled_conv3d_prefolded_launch(
-    const void* x, int cf, int xm, int ym, int zm, const void* w, int k, int cout,
-    const int* tiles, int n_rows, int tx, int ty, int tz, const float* scale,
-    const float* bias, const float* occ, int relu, void* out, void* stream) {
+    const void* x, int cf, int xm, int ym, int zm, const void* wt, int cpad, int k,
+    int cout, const int* tiles, int n_rows, int tx, int ty, int tz, const float* scale,
+    const float* bias, const float* occ, int relu, int* rows, void* out, void* stream) {
+  if (n_rows <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Grid g{xm, ym, zm};
   const Tiles tl{tiles, n_rows, tx, ty, tz};
-  if (n_rows > 0)
-    launch_tc<PREF>(x, cf, g, w, k, cout, tl, n_rows, g, scale, bias, occ, cout, 0, relu,
-                    out, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  int* count = rows + n_rows;
+  cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
+  compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(tl, g, occ, 0, n_rows, rows, count, 0);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  const ConvRows p{static_cast<const __nv_bfloat16*>(x), cf, cpad, k, 1, g,
+                   static_cast<const __nv_bfloat16*>(wt), cout, tl, rows, count, scale, bias,
+                   occ, nullptr, 0, 0, nullptr, nullptr, nullptr, relu,
+                   cf % 8 == 0 && aligned16(x), 0, cout % 8 == 0 && aligned16(out), ob,
+                   nullptr, 1, n_rows, 2 * sm_count()};
+  cudaError_t e;
+  switch (block_cols(cout)) {
+    case 32: e = launch_conv_rows<32>(p, n_rows, s); break;
+    case 64: e = launch_conv_rows<64>(p, n_rows, s); break;
+    case 96: e = launch_conv_rows<96>(p, n_rows, s); break;
+    case 128: e = launch_conv_rows<128>(p, n_rows, s); break;
+    default: e = launch_conv_rows<256>(p, n_rows, s); break;
+  }
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // x: fine grid (xm, ym, zm); out: coarse grid (cxm, cym, czm); w (8, cin, cout)

@@ -9,15 +9,18 @@ on its dense path (``backbone="dense"``, tiled kernels, ``stem_impl=
   device: the scene's shared grids, once: scatter grid, occupancy pyramid
           and the stem's (dy, dz) fold; then, per category (the JAX
           package's ``lax.scan`` over stacked weights), the backbone on those
-          grids -> head slice -> vote splat; then one batched peel over the
-          categories' vote grids
+          grids -> head slice; then one objectness splat for all categories
+          (a category axis on the kernel's grid) and one batched peel over
+          the categories' vote grids
   host:   per-category NMS
 
 The categories' weights are stacked on a leading axis (``stack_state_dicts``)
 and each category's pass is ``torch.func.functional_call`` of one module
-with its slice. With ``group_size`` N > 1 the categories are packed N at a
-time into block-diagonal grouped nets (``eval/grouped.py``). The gather-form
-sparse backbone (``backbone="sparse"``) is not ported yet.
+with its slice; the prefolded stem's folded weights are built once per
+category (or group) when the weights are installed. With ``group_size`` N >
+1 the categories are packed N at a time into block-diagonal grouped nets
+(``eval/grouped.py``). The gather-form sparse backbone
+(``backbone="sparse"``) is not ported yet.
 
 The pipeline runs on the card unless ``device="cpu"`` is asked for; the
 default raises where there is no GPU.
@@ -120,6 +123,7 @@ class SeparateDetectionPipeline:
             **grouped_model_config(self.plan, self.group_size))
         self.net = net.to(self.device).eval().requires_grad_(False)
         self.stacked = None
+        self.stem_wt = None  # per group: the prefolded stem's folded weights
         if self.state_dicts is not None:
             self.set_state_dicts(self.state_dicts)
             self.state_dicts = None
@@ -138,6 +142,8 @@ class SeparateDetectionPipeline:
                       for i in range(0, len(groups), n)]
         self.stacked = {k: v.to(self.device)
                         for k, v in stack_state_dicts(groups).items()}
+        self.stem_wt = None if self.stem_impl != "prefold" else [
+            self.net.fold_stem(w) for w in self.stacked["conv0p1s1.kernel"]]
 
     # ------------------------------------------------------------------
     def prepare_quantized(self, coords: np.ndarray,
@@ -171,31 +177,34 @@ class SeparateDetectionPipeline:
         n_groups = next(iter(self.stacked.values())).shape[0]
         heads = []
         for g in range(n_groups):
+            kw = {"shared": shared}
+            if self.stem_wt is not None:
+                kw["stem_wt"] = self.stem_wt[g]
             rows = functional_call(
                 self.net, {k: v[g] for k, v in self.stacked.items()},
                 (args.feats, args.flat, args.valid, args.dense_dims,
-                 args.tiles, args.tile_shapes), {"shared": shared})
+                 args.tiles, args.tile_shapes), kw)
             heads.extend(rows[:, c * out_ch:(c + 1) * out_ch] for c in range(n))
         return torch.stack(heads[:len(self.categories)])
 
     @torch.no_grad()
     def vote(self, heads: torch.Tensor, args: SceneArgs) -> Dict[str, object]:
-        """Head slice -> one vote splat per category: objectness grids
-        (lazy), or the objectness, rotation and scale grids; stacked."""
+        """Head slice -> the categories' vote grids, stacked: the objectness
+        grids of one splat over every category (lazy), or one 6-channel
+        splat per category for the objectness, rotation and scale grids."""
         xyz, scale, prob = slice_separate_heads(heads)
         if self.log_scale:
             scale = torch.exp(scale)
         corners = compute_corners(args.coords_w, args.valid)
         kw = dict(res=self.res, num_rots=self.num_rots,
                   grid_shape=args.grid_shape, corners=corners, valid=args.valid)
-        per_cat = [(xyz[c], scale[c], prob[c]) for c in range(len(heads))]
         if self.lazy_rot_scale:
-            grids = (torch.stack([hough_voting_obj(args.coords_w, *h,
-                                                   method=self.hv_method, **kw)
-                                  for h in per_cat]), None, None)
+            grids = (hough_voting_obj(args.coords_w, xyz, scale, prob,
+                                      method=self.hv_method, **kw), None, None)
         else:
             grids = tuple(torch.stack(g) for g in zip(
-                *[hough_voting(args.coords_w, *h, **kw) for h in per_cat]))
+                *[hough_voting(args.coords_w, xyz[c], scale[c], prob[c], **kw)
+                  for c in range(len(heads))]))
         return {"grids": grids, "xyz": xyz, "scale": scale, "prob": prob,
                 "corners": corners}
 

@@ -9,7 +9,10 @@ only, with BatchNorm folded into the kernels' epilogues.
 The k=5 stem runs through ``tiled_conv3d`` over the 3-channel grid
 (``stem_impl="tiled"``), or through ``tiled_conv3d_prefolded`` over the
 grid's (dy, dz) fold (``stem_impl="prefold"``, the separate evaluator's
-default). The decoder's up-convs into L0 and L1 run ``tiled_up2`` with the
+default), its kernel folded K-major by the caller once per set of weights
+(:meth:`DenseMinkUNet.fold_stem`, passed as ``forward(..., stem_wt=)``) or
+else by the wrapper on each call. The
+decoder's up-convs into L0 and L1 run ``tiled_up2`` with the
 skip concat fused in (``up_impl="concat"``), or ``tiled_up2_into`` into a
 grid that holds the skip (``up_impl="into"``, the JAX package's
 ``CV_UP2V2=1`` route, ``models/dense_unet.py:503-525``, ``:950-980``); its
@@ -37,8 +40,8 @@ from torch import nn
 from canonicalvoting_tpu_torch.data.dense_prep import (
     CONV_KEY_OFF, MX, MY, MZ, STEM_KEY, TRANS_KEYS)
 from canonicalvoting_tpu_torch.ops.tiled_conv import (
-    UP_INTO_MAX_CHANNELS, fold_dydz, tiled_conv3d, tiled_conv3d_prefolded,
-    tiled_down2, tiled_up2, tiled_up2_into)
+    UP_INTO_MAX_CHANNELS, fold_dydz, prefold_stem_weights, tiled_conv3d,
+    tiled_conv3d_prefolded, tiled_down2, tiled_up2, tiled_up2_into)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 STEM_IMPLS = ("tiled", "prefold")
@@ -185,7 +188,11 @@ class DenseMinkUNet(nn.Module):
     Returns (N, Cout) float32 rows, zero at invalid rows. ``shared`` takes
     the scene's :func:`shared_scene_grids` (built here when not given).
     ``stem_impl`` is "tiled" or "prefold", ``up_impl`` "concat" or "into"
-    (None: :func:`default_up_impl`); neither changes a parameter.
+    (None: :func:`default_up_impl`); neither changes a parameter. With
+    "prefold", ``stem_wt`` takes the stem's folded weights
+    (:meth:`fold_stem`) where the caller keeps them (the separate
+    evaluator, once per category); else the wrapper folds the stem kernel
+    on each call.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -246,6 +253,14 @@ class DenseMinkUNet(nn.Module):
             cin = planes
         return planes
 
+    def fold_stem(self, w: torch.Tensor) -> torch.Tensor:
+        """A (k^3, Cin, Cout) stem kernel folded K-major for
+        ``tiled_conv3d_prefolded`` (``prefold_stem_weights``), in the compute
+        dtype on w's device."""
+        return prefold_stem_weights(w.detach(), self.stem_kernel,
+                                    dtype=_DTYPES[self.compute_dtype],
+                                    device=w.device)
+
     def _blocks(self, name, n, x, occ, tiles, ts, in_perm=None):
         for j in range(n):
             x = getattr(self, f"{name}_{j}")(x, occ, tiles, ts,
@@ -257,7 +272,8 @@ class DenseMinkUNet(nn.Module):
                 valid: torch.Tensor, grid_dims: Tuple[int, int, int],
                 tiles: Dict[int, torch.Tensor],
                 tile_shapes: Dict[int, Tuple[int, int, int]],
-                shared: Optional[Dict[str, object]] = None) -> torch.Tensor:
+                shared: Optional[Dict[str, object]] = None,
+                stem_wt: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = _DTYPES[self.compute_dtype]
         if shared is None:
             shared = shared_scene_grids(
@@ -276,7 +292,8 @@ class DenseMinkUNet(nn.Module):
                     relu_out=True)
         if self.stem_impl == "prefold":
             out_p1 = tiled_conv3d_prefolded(
-                shared["x_folded"], self.conv0p1s1.kernel, tiles[STEM_KEY], **stem)
+                shared["x_folded"], self.conv0p1s1.kernel, tiles[STEM_KEY],
+                wt=stem_wt, **stem)
         else:
             out_p1 = tiled_conv3d(x, self.conv0p1s1.kernel, tiles[STEM_KEY], **stem)
         skips = []

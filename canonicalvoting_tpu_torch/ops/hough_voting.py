@@ -17,14 +17,13 @@ trilinearly.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from canonicalvoting_tpu_torch.ops.hv_splat import (
-    TWO_PI, device_scalar, hv_splat, hv_splat6, hv_splat_windowed)
+    TWO_PI, clip_dims, device_scalar, hv_splat, hv_splat6, hv_splat_windowed)
 
 #: the splat routes of hough_voting_obj: "auto" and "pallas" run the plane
 #: splat (hv_splat), "pallas_windowed" the windowed one where the grid's x
@@ -60,10 +59,9 @@ def grid_dims_from_corners(corners: torch.Tensor, res: float) -> torch.Tensor:
 def clipped_grid_dims(corners: torch.Tensor, res: float,
                       grid_shape: Tuple[int, int, int]) -> torch.Tensor:
     """The grid dims of :func:`grid_dims_from_corners` clipped to the
-    static capacity ``grid_shape``: the bounds of every vote test."""
-    return torch.minimum(grid_dims_from_corners(corners, res),
-                         torch.tensor(grid_shape, dtype=torch.int32,
-                                      device=corners.device))
+    static capacity ``grid_shape``: the bounds of every vote test. No host
+    sync once ``res`` and the extent are cached for the device."""
+    return clip_dims(grid_dims_from_corners(corners, res), grid_shape)
 
 
 def round_grid_shape(dims, multiple=64, cap: Optional[tuple] = None) -> tuple:
@@ -129,18 +127,26 @@ def hough_voting_obj(points: torch.Tensor, xyz: torch.Tensor,
     (``ops/hough_voting.py:501-542``): "pallas_windowed" runs
     :func:`hv_splat_windowed` when ``gx % 32 == 0`` and the plane splat
     otherwise; "auto" and "pallas" run the plane splat. Every route gives
-    the same grid."""
+    the same grid. xyz (C, N, 3), scale (C, N, 3) and obj (C, N) give the C
+    categories' grids (C, gx, gy, gz) over the same points: one plane splat
+    launch, or one windowed splat per category."""
     check_hv_method(method)
     if valid is not None:
         valid = valid.to(points.dtype)
     if corners is None:
         corners = compute_corners(points, valid)
     dims = clipped_grid_dims(corners, res, grid_shape)
-    splat = hv_splat
+    kw = dict(num_rots=num_rots, grid_shape=grid_shape, valid=valid)
     if method == "pallas_windowed" and grid_shape[0] % WINDOW_X_BUCKET == 0:
-        splat = functools.partial(hv_splat_windowed, x_bucket=WINDOW_X_BUCKET)
-    return splat(points, xyz, scale, obj, corners[0], dims, res,
-                 num_rots=num_rots, grid_shape=grid_shape, valid=valid)
+        def windowed(x, s, o):
+            return hv_splat_windowed(points, x, s, o, corners[0], dims, res,
+                                     x_bucket=WINDOW_X_BUCKET, **kw)
+
+        if obj.dim() == 2:
+            return torch.stack([windowed(xyz[c], scale[c], obj[c])
+                                for c in range(obj.shape[0])])
+        return windowed(xyz, scale, obj)
+    return hv_splat(points, xyz, scale, obj, corners[0], dims, res, **kw)
 
 
 def hough_voting(points: torch.Tensor, xyz: torch.Tensor, scale: torch.Tensor,

@@ -2,16 +2,20 @@
 
 Counterpart of ``hv_splat_pallas`` in
 ``canonicalvoting_tpu/ops/pallas/hv_splat.py``: ``hv_splat`` is its
-``channels=1`` objectness grid, ``hv_splat6`` its ``channels=6`` raw sums
-``[obj, obj*cos, obj*sin, obj*sx, obj*sy, obj*sz]``; ``hv_splat_windowed``
-is ``hv_splat_windowed`` there, ``hv_splat``'s function over points sorted
-into (y plane, x bucket) windows. The kernels are in ``csrc/hv_splat.cu``;
-its header says what bounds them on the H100, and how they make the sums
-deterministic (64-bit fixed-point integer atomics).
+``channels=1`` objectness grid (of one category, or of several in one
+launch: the separate evaluator's categories), ``hv_splat6`` its
+``channels=6`` raw sums ``[obj, obj*cos, obj*sin, obj*sx, obj*sy,
+obj*sz]``; ``hv_splat_windowed`` is ``hv_splat_windowed`` there,
+``hv_splat``'s function over points sorted into (y plane, x bucket)
+windows. The kernels are in ``csrc/hv_splat.cu``; its header says what
+bounds them on the H100, and how they make the sums deterministic (64-bit
+fixed-point integer atomics).
 
 The wrappers run the kernel for CUDA tensors and the plain version for CPU
 tensors, and raise for anything else. ``<wrapper>.launches`` counts kernel
-launches, each wrapper its own.
+launches, each wrapper its own. A call on the card makes no host sync once
+its device constants (the rotation table, ``res``, the grid's extent) are
+cached for its device.
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ TWO_PI = 2.0 * 3.141592654  # the upstream CUDA kernel's constant
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "hv_splat_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P,
-                        ctypes.c_float, _I, _I, _I, _I, _P, _P, _P],
+    "hv_votes_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
+                        ctypes.c_float, _I, _I, _I, _I, _P, _P],
+    "hv_fixed_to_float_launch": [_P, ctypes.c_longlong, _P, _P],
     "hv_splat_windowed_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                                  _P, _P, _I, _P, _P, ctypes.c_float, _I, _I,
                                  _I, _P, _P, _P],
@@ -39,21 +44,51 @@ _ARGTYPES = {
 _launcher = functools.partial(launcher, "hv_splat", _ARGTYPES)
 
 
-def rotation_table(num_rots: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) float32 of theta_i = i * 2pi / num_rots, as the JAX
-    package computes them (angles rounded to float32 first)."""
-    thetas = (np.arange(num_rots) * (TWO_PI / num_rots)).astype(np.float32)
-    t = torch.from_numpy(thetas).to(device)
+def rotation_angles(num_rots: int) -> np.ndarray:
+    """float32 theta_i = i * 2pi / num_rots, as the JAX package's XLA path
+    forms them (``ops/hough_voting.py:_theta_chunks``: float64 products
+    rounded to float32)."""
+    return (np.arange(num_rots) * (TWO_PI / num_rots)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _rotation_table(num_rots: int, device: torch.device):
+    t = torch.from_numpy(rotation_angles(num_rots)).to(device)
     return torch.cos(t), torch.sin(t)
 
 
-def device_scalar(v: float, device) -> torch.Tensor:
-    """``v`` as a float32 tensor on ``device``. Dividing by it is an IEEE
-    division on the card, as in the kernel (and the upstream kernel); a
-    Python float divisor becomes a multiply by its reciprocal there, which
-    rounds some votes differently and moves the in-range test of a vote
-    that sits on the grid's edge."""
+def rotation_table(num_rots: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) float32 of :func:`rotation_angles`, computed on
+    ``device``; built once per (num_rots, device) and cached, so a splat's
+    call copies nothing from the host. Callers must not write to them."""
+    return _rotation_table(num_rots, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_scalar(v: float, device: torch.device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def device_scalar(v: float, device) -> torch.Tensor:
+    """``v`` as a float32 tensor on ``device``, cached per (v, device).
+    Dividing by it is an IEEE division on the card, as in the kernel (and
+    the upstream kernel); a Python float divisor becomes a multiply by its
+    reciprocal there, which rounds some votes differently and moves the
+    in-range test of a vote that sits on the grid's edge."""
+    return _device_scalar(float(v), torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_extent(grid_shape: Tuple[int, int, int], device: torch.device):
+    return torch.tensor(grid_shape, dtype=torch.int32, device=device)
+
+
+def clip_dims(dims: torch.Tensor, grid_shape) -> torch.Tensor:
+    """int32 ``dims`` clipped to the static capacity ``grid_shape``, against
+    an extent tensor cached per (grid_shape, device): the kernels' writes
+    stay inside the grid only with dims <= grid_shape."""
+    return torch.minimum(dims.to(torch.int32),
+                         _grid_extent(tuple(grid_shape), dims.device))
 
 
 def hv_splat_plain(points, xyz, scale, obj, corner, dims, res, *, num_rots,
@@ -62,9 +97,16 @@ def hv_splat_plain(points, xyz, scale, obj, corner, dims, res, *, num_rots,
     ``[1, cos, sin, sx, sy, sz]`` with 6 channels, each product in float32),
     summed in float64 so the reference carries no summation error of its
     own (a hot cell collects ~1e5 votes). (gx, gy, gz) with one channel,
-    (gx, gy, gz, 6) with six."""
+    (gx, gy, gz, 6) with six; with a leading category axis on xyz, scale
+    and obj, one such grid per category, stacked (a loop over the
+    categories)."""
     if channels not in (1, 6):
         raise ValueError(f"channels must be 1 or 6, got {channels}")
+    if obj.dim() == 2:
+        return torch.stack([_splat_plain(points, xyz[c], scale[c], obj[c],
+                                         corner, dims, res, num_rots,
+                                         grid_shape, valid, channels)
+                            for c in range(obj.shape[0])])
     return _splat_plain(points, xyz, scale, obj, corner, dims, res, num_rots,
                         grid_shape, valid, channels)
 
@@ -123,12 +165,20 @@ def _splat_plain(points, xyz, scale, obj, corner, dims, res, num_rots,
     return grid[..., 0] if channels == 1 else grid
 
 
-def _route(points, xyz, scale, obj, corner, dims, valid) -> str:
+def _route(points, xyz, scale, obj, corner, dims, valid,
+           categories: bool = False) -> str:
     """Check the splat's arguments: "cuda" for the kernel, "plain" for CPU
-    tensors; anything else raises."""
+    tensors; anything else raises. With ``categories`` xyz, scale and obj
+    may carry a leading category axis."""
     n = points.shape[0]
-    for name, t, shape in (("points", points, (n, 3)), ("xyz", xyz, (n, 3)),
-                           ("scale", scale, (n, 3)), ("obj", obj, (n,)),
+    lead = tuple(obj.shape[:-1])
+    if len(lead) > int(categories):
+        raise ValueError(f"obj must be (N,){' or (C, N)' * categories}, "
+                         f"got {tuple(obj.shape)}")
+    for name, t, shape in (("points", points, (n, 3)),
+                           ("xyz", xyz, lead + (n, 3)),
+                           ("scale", scale, lead + (n, 3)),
+                           ("obj", obj, lead + (n,)),
                            ("corner", corner, (3,)), ("dims", dims, (3,))):
         if tuple(t.shape) != shape or t.device != points.device:
             raise ValueError(f"{name} must be {shape} on {points.device}")
@@ -144,34 +194,49 @@ def _route(points, xyz, scale, obj, corner, dims, valid) -> str:
 def _kernel_args(points, xyz, scale, obj, corner, dims, valid, num_rots,
                  grid_shape):
     """The kernels' inputs on the card: float32 rows, valid or None, dims
-    clipped to grid_shape (the kernels' writes stay inside the grid only
-    with dims <= grid_shape) and the rotation table."""
-    dev = points.device
+    clipped to grid_shape and the rotation table. No host sync."""
     f = [t.to(torch.float32).contiguous() for t in (points, xyz, scale, obj, corner)]
     v = None if valid is None else valid.to(torch.float32).contiguous()
-    d = torch.minimum(dims.to(torch.int32),
-                      torch.tensor(grid_shape, dtype=torch.int32, device=dev))
-    return f, v, d, rotation_table(num_rots, dev)
+    return f, v, clip_dims(dims, grid_shape), rotation_table(num_rots,
+                                                             points.device)
+
+
+def _votes(acc, f, v, d, tables, res, num_rots, grid_shape, channels):
+    """Launch the vote kernel of ``_kernel_args``' inputs: every category's
+    votes added into ``acc``, (C, gx, gy, gz, channels) int64 fixed point
+    that the caller zeroed."""
+    cosv, sinv = tables
+    gx, gy, gz = grid_shape
+    n_cat = f[3].shape[0] if f[3].dim() == 2 else 1
+    rc = _launcher("hv_votes_launch")(
+        *[t.data_ptr() for t in f[:4]], None if v is None else v.data_ptr(),
+        f[0].shape[0], n_cat, cosv.data_ptr(), sinv.data_ptr(), num_rots,
+        f[4].data_ptr(), d.data_ptr(), float(res), gx, gy, gz, channels,
+        acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(rc, "hv_splat votes")
+
+
+def _fixed_to_float(acc: torch.Tensor, out: torch.Tensor) -> None:
+    rc = _launcher("hv_fixed_to_float_launch")(
+        acc.data_ptr(), acc.numel(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    check(rc, "hv_splat fixed_to_float")
 
 
 def _splat(points, xyz, scale, obj, corner, dims, res, num_rots,
            grid_shape, valid, channels):
-    if _route(points, xyz, scale, obj, corner, dims, valid) == "plain":
+    if _route(points, xyz, scale, obj, corner, dims, valid,
+              categories=channels == 1) == "plain":
         return hv_splat_plain(points, xyz, scale, obj, corner, dims, res,
                               num_rots=num_rots, grid_shape=grid_shape,
                               valid=valid, channels=channels)
-    gx, gy, gz = grid_shape
-    dev = points.device
-    f, v, d, (cosv, sinv) = _kernel_args(points, xyz, scale, obj, corner, dims,
-                                         valid, num_rots, grid_shape)
-    acc = torch.empty(gx * gy * gz * channels, dtype=torch.int64, device=dev)
-    out = torch.empty((gx, gy, gz, channels), dtype=torch.float32, device=dev)
-    rc = _launcher("hv_splat_launch")(
-        *[t.data_ptr() for t in f[:4]], None if v is None else v.data_ptr(),
-        points.shape[0], cosv.data_ptr(), sinv.data_ptr(), num_rots,
-        f[4].data_ptr(), d.data_ptr(), float(res), gx, gy, gz, channels,
-        acc.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    check(rc, "hv_splat")
+    f, v, d, tables = _kernel_args(points, xyz, scale, obj, corner, dims,
+                                   valid, num_rots, grid_shape)
+    shape = tuple(obj.shape[:-1]) + tuple(grid_shape) + (channels,)
+    acc = torch.zeros(shape, dtype=torch.int64, device=points.device)
+    out = torch.empty(shape, dtype=torch.float32, device=points.device)
+    _votes(acc, f, v, d, tables, res, num_rots, grid_shape, channels)
+    _fixed_to_float(acc, out)
     (hv_splat6 if channels == 6 else hv_splat).launches += 1
     return out
 
@@ -185,10 +250,13 @@ def hv_splat(points: torch.Tensor, xyz: torch.Tensor, scale: torch.Tensor,
     points/xyz/scale (N, 3), obj and valid (N,) float32; ``corner`` (3,) is
     the grid origin and ``dims`` (3,) int32 the grid's actual extent (the
     bounds test), both on the points' device; ``grid_shape`` the static
-    capacity.
+    capacity. xyz (C, N, 3), scale (C, N, 3) and obj (C, N) splat C
+    categories over the same points in one launch: (C, gx, gy, gz), each
+    grid exactly the single call's.
     """
-    return _splat(points, xyz, scale, obj, corner, dims, res, num_rots,
-                  grid_shape, valid, 1).reshape(grid_shape)
+    out = _splat(points, xyz, scale, obj, corner, dims, res, num_rots,
+                 grid_shape, valid, 1)
+    return out.reshape(tuple(obj.shape[:-1]) + tuple(grid_shape))
 
 
 hv_splat.launches = 0
@@ -200,7 +268,7 @@ def hv_splat6(points: torch.Tensor, xyz: torch.Tensor, scale: torch.Tensor,
               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Raw (gx, gy, gz, 6) float32 vote sums ``[obj, obj*cos, obj*sin,
     obj*sx, obj*sy, obj*sz]``, channel-last as the JAX package returns them;
-    arguments as :func:`hv_splat`."""
+    arguments as :func:`hv_splat`, one category."""
     return _splat(points, xyz, scale, obj, corner, dims, res, num_rots,
                   grid_shape, valid, 6)
 

@@ -43,8 +43,9 @@ _ARGTYPES = {
     "tiled_conv3d_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I,
                             _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I,
                             _P, _P, _P, _I, _P],
-    "tiled_conv3d_prefolded_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I,
-                                      _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    "tiled_conv3d_prefolded_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P,
+                                      _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+                                      _P],
     "tiled_down2_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I,
                            _I, _I, _I, _P, _P, _P, _I, _P, _P],
     "tiled_up2_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
@@ -125,9 +126,10 @@ MAX_SPLITS = 8
 SPLIT_BYTES = 128 << 20
 
 
-def _k_major(w: torch.Tensor, x: torch.Tensor, parities: bool = False):
-    """(taps, Cin, Cout) weights -> K-major rows in x's dtype and device for
-    the occupied-row kernels, Cin zero-padded to a multiple of K_CHUNK:
+def _k_major(w: torch.Tensor, dtype: torch.dtype, device,
+             parities: bool = False):
+    """(taps, Cin, Cout) weights -> K-major rows in ``dtype`` on ``device``
+    for the occupied-row kernels, Cin zero-padded to a multiple of K_CHUNK:
     (Cout, taps, Cpad) for a conv, or (8, Cout, Cpad) with ``parities`` for
     the up. One copy casts and transposes. Returns (rows, Cpad)."""
     taps, cin, cout = w.shape
@@ -135,7 +137,7 @@ def _k_major(w: torch.Tensor, x: torch.Tensor, parities: bool = False):
     shape, src = (((taps, cout, cpad), w.permute(0, 2, 1)) if parities
                   else ((cout, taps, cpad), w.permute(2, 0, 1)))
     rows = (torch.empty if cpad == cin else torch.zeros)(
-        shape, dtype=x.dtype, device=x.device)
+        shape, dtype=dtype, device=device)
     rows[..., :cin].copy_(src)
     return rows, cpad
 
@@ -194,6 +196,18 @@ def fold_stem_weights(w: torch.Tensor, k: int, cf: int) -> torch.Tensor:
     wk = w.reshape(k, k, k, cin, cout).permute(2, 3, 0, 1, 4)  # (dx, c, dz, dy, co)
     wk = wk.reshape(k, k * k * cin, cout)
     return F.pad(wk, (0, 0, 0, cf - k * k * cin))
+
+
+def prefold_stem_weights(w: torch.Tensor, k: int, *, dtype: torch.dtype,
+                         device) -> torch.Tensor:
+    """The prefolded stem kernel's weights: the (k^3, Cin, Cout) kernel
+    folded (:func:`fold_stem_weights`) and laid out K-major in ``dtype`` on
+    ``device``, (Cout, k, Cpad) with Cpad = folded_channels(Cin, k) rounded
+    up to K_CHUNK over zero rows. A caller builds it once per set of
+    weights and passes it to :func:`tiled_conv3d_prefolded` as ``wt``."""
+    cf = folded_channels(w.shape[1], k)
+    return _k_major(fold_stem_weights(w.to(device=device, dtype=dtype), k, cf),
+                    dtype, device)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -393,10 +407,10 @@ def tiled_conv3d(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
     out = torch.zeros(x.shape[:3] + (cout,), dtype=x.dtype, device=dev)
     res = None if residual is None else residual.to(x.dtype).contiguous()
     cin = x.shape[3]
-    wt, cpad = _k_major(w, x)
+    wt, cpad = _k_major(w, x.dtype, dev)
     rwt, crpad, rs, rb = None, 0, None, None
     if res_w is not None:
-        rwt, crpad = _k_major(res_w[None], x)
+        rwt, crpad = _k_major(res_w[None], x.dtype, dev)
         rs = _f32(res_scale if res_scale is not None
                   else torch.ones(cout), dev)
         rb = _f32(res_bias if res_bias is not None
@@ -427,35 +441,48 @@ def tiled_conv3d_prefolded(xf: torch.Tensor, w: torch.Tensor,
                            tiles: torch.Tensor, *,
                            tile_shape: Tuple[int, int, int],
                            kernel_size: int, scale=None, bias=None, occ=None,
-                           relu_out: bool = False) -> torch.Tensor:
+                           relu_out: bool = False,
+                           wt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The k-wide stem conv over fold_dydz's grid ``xf``: only the k
     x-offsets remain as taps, ``out = relu?(occ * (sum_dx xf[cell + (dx - h,
     0, 0)] @ W[dx] * scale + bias))`` over the listed tiles. ``w`` is the
-    unfolded (k^3, Cin, Cout) kernel, folded here (``fold_stem_weights``).
-    Counterpart of the JAX package's ``tiled_conv3d(prefolded=True)``;
-    launches count apart from ``tiled_conv3d``'s."""
+    unfolded (k^3, Cin, Cout) kernel; ``wt`` its folded K-major layout from
+    :func:`prefold_stem_weights` in xf's dtype, which a caller builds once
+    (else the kernel's route builds it here, each call). The plain version,
+    for CPU tensors, ignores ``wt`` and folds ``w`` itself, so the kernel's
+    weights are held against a fold of their own. Counterpart of the JAX package's
+    ``tiled_conv3d(prefolded=True)``; launches count apart from
+    ``tiled_conv3d``'s."""
     _check_grid(xf, "xf")
     k = kernel_size
     if (k % 2 != 1 or k // 2 > MX or w.shape[0] != k ** 3
             or xf.shape[3] != folded_channels(w.shape[1], k)):
         raise ValueError(f"weights {tuple(w.shape)} do not fit a k={k} fold "
                          f"of {tuple(xf.shape)}")
+    cout, cf = w.shape[2], xf.shape[3]
+    cpad = -(-cf // K_CHUNK) * K_CHUNK
+    if wt is not None and (tuple(wt.shape) != (cout, k, cpad)
+                           or wt.device != xf.device):
+        raise ValueError(f"wt {tuple(wt.shape)} on {wt.device} is not the "
+                         f"({cout}, {k}, {cpad}) fold on {xf.device}")
     _check_tiles(tiles, xf, _interior(xf.shape), tile_shape)
     _check_occ(occ, xf.shape[:3])
     kw = dict(tile_shape=tile_shape, kernel_size=k, scale=scale, bias=bias,
               occ=occ, relu_out=relu_out)
     if _route(xf) == "plain":
         return tiled_conv3d_prefolded_plain(xf, w, tiles, **kw)
+    _check_cells(xf.shape)
     dev = xf.device
-    cout = w.shape[2]
     out = torch.zeros(xf.shape[:3] + (cout,), dtype=xf.dtype, device=dev)
-    wf = fold_stem_weights(_like(w, xf), k, xf.shape[3]).contiguous()
+    wt = (prefold_stem_weights(w, k, dtype=xf.dtype, device=dev) if wt is None
+          else _like(wt, xf))
     sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
-    cells = tile_shape[0] * tile_shape[1] * tile_shape[2]
+    n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
+    rows = torch.empty(n_rows + 2, dtype=torch.int32, device=dev)
     rc = _launcher("tiled_conv3d_prefolded_launch")(
-        xf.data_ptr(), xf.shape[3], *xf.shape[:3], wf.data_ptr(), k, cout,
-        tiles.data_ptr(), tiles.shape[0] * cells, *tile_shape, _ptr(sc),
-        _ptr(bi), _ptr(oc), int(relu_out), out.data_ptr(), _stream())
+        xf.data_ptr(), cf, *xf.shape[:3], wt.data_ptr(), cpad, k, cout,
+        tiles.data_ptr(), n_rows, *tile_shape, _ptr(sc), _ptr(bi), _ptr(oc),
+        int(relu_out), rows.data_ptr(), out.data_ptr(), _stream())
     check(rc, "tiled_conv3d_prefolded")
     tiled_conv3d_prefolded.launches += 1
     return out
@@ -532,7 +559,7 @@ def tiled_up2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
     cout = w.shape[2]
     out = torch.zeros(fshape + (cout + skip_c,), dtype=x.dtype, device=dev)
     sk = None if skip is None else skip.to(x.dtype).contiguous()
-    wt, cpad = _k_major(w, x, parities=True)
+    wt, cpad = _k_major(w, x.dtype, dev, parities=True)
     sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
     n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
     rows = torch.empty(n_rows // 8 + 2, dtype=torch.int32, device=dev)

@@ -5,19 +5,30 @@
 Phase 0 builds the CUDA kernels from csrc/ and names the card.
 Phase 1 runs every kernel at every configuration the paths give it
 (recorded from a pass on a ScanNet-scale synthetic scene, in bfloat16: the
-joint path, the separate path's prefolded stem, the non-lazy tail's
-6-channel splat, the joint path's variant routes: the into-convs of
+joint path, the separate path's prefolded stem and its objectness splat
+over the nine categories, the non-lazy tail's 6-channel splat, the joint
+path's variant routes: the into-convs of
 up_impl="into" and the windowed splat of hv_method="pallas_windowed"),
 holds it against its plain PyTorch version, and times kernel, plain
 version, the library call computing the same function where there is one,
-the zero fill of the output grid inside the wrapper, and the card's bound
-for the work. The occupied-row kernels (tiled_conv3d, tiled_up2) must also
-give bitwise-equal outputs on a repeated call, and equal their plain
-versions at one L0 and one L1 configuration on random inputs that are
-non-zero at unoccupied cells too (x, a plain residual, the skip). The
-fused BasicBlock kernel, which no path runs, is held against its plain
-version and the two-conv output on the recorded input of each of the joint
-pass's 23 blocks.
+the zero fill of the output grid (or the splat's scratch) inside the
+wrapper, the host's time to issue one call, and the card's bound for the
+work (the prefolded stem is held against a fold of the stem kernel of
+the plain version's own, not the kernel's K-major weights; each splat
+channel or category within 1e-4 of its own peak). The occupied-row kernels (tiled_conv3d, the prefolded stem,
+tiled_up2) must also give bitwise-equal outputs on a repeated call, and
+equal their plain versions on random inputs that are non-zero at
+unoccupied cells too (x or the fold, a plain residual, the skip) at one L0
+and one L1 configuration (the stem: L0, with exact zeros at its unoccupied
+listed cells). The objectness splat must be bitwise equal to itself on a
+repeat; its joint call bitwise equal to the windowed splat, and a call
+over nine made-up categories to the nine single calls; the separate
+path's call over its nine categories bitwise equal to its nine single
+calls. Its vote kernel, scratch fill and conversion are timed apart. One call of each of the prefolded stem and
+the three splats runs under torch.cuda.set_sync_debug_mode("error"): no
+host sync inside. The fused BasicBlock kernel, which no path runs, is held
+against its plain version and the two-conv output on the recorded input of
+each of the joint pass's 23 blocks.
 Phase 2 drives the joint inference path at full MinkUNet34C width on three
 synthetic scenes (random weights from a seed; the tail decodes planted head
 rows, so every scene carries boxes) and checks from the launch counters that
@@ -72,10 +83,12 @@ NO_VARIANTS = {"tiled_up2_into": 0, "hv_splat_windowed": 0, "tiled_block3d": 0}
 PER_SCENE = {"tiled_conv3d": 47, "tiled_down2": 4, "tiled_up2": 4,
              **NO_VARIANTS}
 # one separate scene: 9 categories x (46 k=3 convs, the prefolded stem, 4
-# downs, 4 ups, one objectness splat)
+# downs, 4 ups), then one objectness splat over the 9 categories
 SEPARATE_PER_SCENE = {"tiled_conv3d": 9 * 46, "tiled_conv3d_prefolded": 9,
-                      "tiled_down2": 36, "tiled_up2": 36, "hv_splat": 9,
+                      "tiled_down2": 36, "tiled_up2": 36, "hv_splat": 1,
                       "hv_splat6": 0, **NO_VARIANTS}
+# the categories of the batched splat check (the separate evaluator's)
+SPLAT_CATEGORIES = 9
 # one joint scene with up_impl="into" (the ups into L0 and L1) and
 # hv_method="pallas_windowed"
 VARIANT_PER_SCENE = {"tiled_conv3d": 47, "tiled_down2": 4, "tiled_up2": 2,
@@ -281,8 +294,8 @@ def recorder(records, module, name):
     f = getattr(module, name)
 
     def rec(*a, **kw):
-        if name.startswith("hv_splat"):
-            key = (name, tuple(a[0].shape), kw["grid_shape"])
+        if name.startswith("hv_splat"):  # points, obj (the categories), grid
+            key = (name, tuple(a[0].shape), tuple(a[3].shape), kw["grid_shape"])
         else:
             res = kw.get("residual")
             kind = ("none" if res is None else
@@ -300,11 +313,14 @@ def recorder(records, module, name):
     return rec
 
 
-def record_calls(pipe, sep, args, rows, sep_args):
+def record_calls(pipe, sep, args, rows, sep_args, sep_rows):
     """{config: record} of every kernel call one scene's passes make: the
-    joint path, the separate path's prefolded stem (its other calls have
-    the joint path's configurations), the non-lazy tail's splat and the
-    joint path's variant routes (the into-convs and the windowed splat)."""
+    joint path, the separate path's prefolded stem and its objectness splat
+    over the categories (its other calls have the joint path's
+    configurations), the non-lazy tail's splat and the joint path's variant
+    routes (the into-convs and the windowed splat)."""
+    import torch
+
     import canonicalvoting_tpu_torch.models.dense_unet as du
     import canonicalvoting_tpu_torch.ops.hough_voting as hv
 
@@ -323,6 +339,9 @@ def record_calls(pipe, sep, args, rows, sep_args):
     with patched(du, tiled_conv3d_prefolded=recorder(
             records, du, "tiled_conv3d_prefolded")):
         sep.backbones(sep_args)
+    with patched(hv, hv_splat=recorder(records, hv, "hv_splat")):
+        sep.vote(torch.as_tensor(sep_rows, device=sep_args.valid.device),
+                 sep_args)
     pipe.lazy_rot_scale = False
     try:
         with patched(hv, hv_splat6=recorder(records, hv, "hv_splat6")):
@@ -425,9 +444,10 @@ def prefold_bound(r):
 
 
 def splat_bound(r, channels=1):
-    """Point rows in, grid out (channels wide); f32 ops per vote: ~12 to
-    place it, ~32 more per channel to weight its 8 corners when it lands in
-    range."""
+    """Point rows in (points and valid once, xyz, scale and obj once a
+    category), grids out (channels wide, one a category); f32 ops per vote:
+    ~12 to place it, ~32 more per channel to weight its 8 corners when it
+    lands in range."""
     import torch
 
     from canonicalvoting_tpu_torch.ops.hv_splat import rotation_table
@@ -436,18 +456,21 @@ def splat_bound(r, channels=1):
     valid = r["kw"]["valid"]
     gx, gy, gz = r["kw"]["grid_shape"]
     cosv, sinv = rotation_table(r["kw"]["num_rots"], points.device)
-    corr = xyz * scale
+    corrs = (xyz * scale).reshape(-1, *points.shape)
     live = valid > 0
     in_range = 0
-    for c, s in zip(cosv, sinv):
-        u = torch.stack([points[:, 0] - c * corr[:, 0] + s * corr[:, 2],
-                         points[:, 1] - corr[:, 1],
-                         points[:, 2] - s * corr[:, 0] - c * corr[:, 2]], -1)
-        u = (u - corner) / res
-        ok = torch.all((u >= 0) & (u < dims.float() - 1), -1) & live
-        in_range += int(ok.sum())
-    votes = int(live.sum()) * len(cosv)
-    nbytes = points.shape[0] * 11 * 4 + gx * gy * gz * channels * 4
+    for corr in corrs:
+        for c, s in zip(cosv, sinv):
+            u = torch.stack([points[:, 0] - c * corr[:, 0] + s * corr[:, 2],
+                             points[:, 1] - corr[:, 1],
+                             points[:, 2] - s * corr[:, 0] - c * corr[:, 2]], -1)
+            u = (u - corner) / res
+            ok = torch.all((u >= 0) & (u < dims.float() - 1), -1) & live
+            in_range += int(ok.sum())
+    n_cat = corrs.shape[0]
+    votes = int(live.sum()) * len(cosv) * n_cat
+    nbytes = (points.shape[0] * (4 + 7 * n_cat) * 4
+              + n_cat * gx * gy * gz * channels * 4)
     flops = votes * 12 + in_range * 32 * channels
     t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return ((t_b, "bytes") if t_b >= t_f else (t_f, "operations")), in_range
@@ -569,7 +592,7 @@ def phase1_blocks(pipe, args, s, failures):
             failures.append(("tiled_block3d", i, err, tol, err2, tol2))
         errs.append((err, scale, tol, err2, tol2))
     s["launches"] = tc.tiled_block3d.launches
-    s["library_ms"] = None
+    s["library_ms"] = s["host_ms"] = None
     s["two_conv_ms"] = 0.0
     for i, (blk, x, occ, tiles, ts, out) in enumerate(blocks):
         a, kw = block_call(blk, x, occ, tiles, ts)
@@ -598,17 +621,28 @@ def phase1_blocks(pipe, args, s, failures):
 
 
 # the kernels whose rows are compacted to the occupied ones: their outputs
-# must not depend on the row order the compaction's atomics give
-ROW_KERNELS = ("tiled_conv3d", "tiled_up2")
-# the wrappers that zero-fill a fresh output grid
-FILLED = ("tiled_conv3d", "tiled_conv3d_prefolded", "tiled_down2", "tiled_up2")
+# must not depend on the row order the compaction's atomics give; the
+# levels of their unmasked-input checks
+ROW_KERNELS = {"tiled_conv3d": (0, 1), "tiled_conv3d_prefolded": (0,),
+               "tiled_up2": (0, 1)}
+# the wrappers that zero-fill a fresh output grid, or the splat's scratch
+FILLED = ("tiled_conv3d", "tiled_conv3d_prefolded", "tiled_down2", "tiled_up2",
+          "hv_splat", "hv_splat6")
+# the wrappers held to no host sync inside a call
+SYNC_FREE = ("tiled_conv3d_prefolded", "hv_splat", "hv_splat6",
+             "hv_splat_windowed")
 
 
 def fill_call(r):
-    """The zero fill of the output grid that the wrapper allocates."""
+    """The zero fill of the output grid that the wrapper allocates, or of
+    the splat's int64 fixed-point scratch."""
     import torch
 
     name, (x, w), kw = r["name"], r["args"][:2], r["kw"]
+    if name.startswith("hv_splat"):
+        shape = (tuple(r["args"][3].shape[:-1]) + tuple(kw["grid_shape"])
+                 + (6 if name == "hv_splat6" else 1,))
+        return lambda: torch.zeros(shape, dtype=torch.int64, device=x.device)
     cout = w.shape[2]
     if name == "tiled_down2":
         shape = tuple(kw["occ"].shape) + (cout,)
@@ -617,6 +651,100 @@ def fill_call(r):
     else:
         shape = tuple(x.shape[:3]) + (cout,)
     return lambda: torch.zeros(shape, dtype=x.dtype, device=x.device)
+
+
+def host_ms(fn, reps: int) -> float:
+    """The host's time to issue one call (no sync between the calls)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def sync_free(fn):
+    """(True, None) when a call of fn makes no host sync: a warm call first
+    (it caches the call's device constants), then one under
+    torch.cuda.set_sync_debug_mode("error"); else (False, the error)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return True, None
+    except RuntimeError as e:
+        return False, repr(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def splat_checks(r, got, failures, extra):
+    """The objectness splat: bitwise equal to itself on a repeat, and its
+    pieces timed apart (the vote kernel alone, the fixed-point conversion).
+    A call of one category must also be bitwise equal to the windowed splat
+    on the same inputs, and one call over SPLAT_CATEGORIES made-up
+    categories (scaled offsets, half the points' objectness kept at random)
+    to their single calls; the separate path's call over its categories
+    must be bitwise equal to its single calls, both timed."""
+    import torch
+
+    import canonicalvoting_tpu_torch.ops.hv_splat as hs
+
+    a, kw = r["args"], r["kw"]
+    points, xyz, scale, obj = a[:4]
+    checks = {"bitwise_repeat": torch.equal(got, hs.hv_splat(*a, **kw))}
+
+    def singles(x, s, o):
+        return [hs.hv_splat(points, x[c], s[c], o[c], *a[4:], **kw)
+                for c in range(o.shape[0])]
+
+    if obj.dim() == 1:
+        checks["bitwise_equal_windowed"] = torch.equal(
+            got, hs.hv_splat_windowed(*a, x_bucket=32, **kw))
+        C = SPLAT_CATEGORIES
+        g = torch.Generator(device=points.device).manual_seed(2)
+        keep = torch.rand((C, obj.shape[0]), generator=g,
+                          device=points.device) < 0.5
+        made_up = (torch.stack([xyz * (1.0 + 0.05 * c) for c in range(C)]),
+                   scale.expand(C, -1, -1).contiguous(), obj * keep.float())
+        batched = hs.hv_splat(points, *made_up, *a[4:], **kw)
+        checks["batched_bitwise_equal_singles"] = all(
+            torch.equal(b, s) for b, s in zip(batched, singles(*made_up)))
+        del batched
+    else:
+        checks["bitwise_equal_singles"] = all(
+            torch.equal(b, s) for b, s in zip(got, singles(xyz, scale, obj)))
+        extra["singles_ms"] = time_ms(lambda: singles(xyz, scale, obj), 3)
+    extra.update(checks)
+    failures.extend((r["name"], k) for k, ok in checks.items() if not ok)
+    num_rots, grid_shape = kw["num_rots"], kw["grid_shape"]
+    f, v, d, tables = hs._kernel_args(*a[:6], kw.get("valid"), num_rots,
+                                      grid_shape)
+    acc = torch.zeros(tuple(obj.shape[:-1]) + tuple(grid_shape) + (1,),
+                      dtype=torch.int64, device=points.device)
+    out = torch.empty(acc.shape, dtype=torch.float32, device=points.device)
+    extra["vote_ms"] = time_ms(lambda: hs._votes(
+        acc, f, v, d, tables, a[6], num_rots, grid_shape, 1), 5)
+    extra["convert_ms"] = time_ms(lambda: hs._fixed_to_float(acc, out), 5)
+
+
+def prefolded_plain(*a, wt=None, **kw):
+    """The prefolded stem's plain version, which folds the stem kernel
+    itself: the K-major fold ``wt`` that the kernel reads is not used, so
+    the kernel's weights are held against a fold of their own."""
+    from canonicalvoting_tpu_torch.ops.tiled_conv import (
+        tiled_conv3d_prefolded_plain)
+
+    del wt
+    return tiled_conv3d_prefolded_plain(*a, **kw)
 
 
 def unmasked_inputs(r):
@@ -639,16 +767,20 @@ def unmasked_inputs(r):
 
 
 def unmasked_checks(records, kern, plain, levels, failures):
-    """One L0 and one L1 configuration of each occupied-row kernel (the
-    conv with a plain residual) on unmasked random inputs, against the
-    plain version, and a repeated call bitwise equal."""
+    """One configuration of each occupied-row kernel at each of its
+    ROW_KERNELS levels (the conv with a plain residual) on unmasked random
+    inputs, against the plain version, and a repeated call bitwise equal;
+    the prefolded stem also writes exact zeros at its unoccupied listed
+    cells."""
     import torch
+
+    import canonicalvoting_tpu_torch.ops.tiled_conv as tc
 
     done = set()
     for key, r in records.items():
         name = r["name"]
         lvl = levels.get(tuple(r["kw"]["occ"].shape)) if name in ROW_KERNELS else None
-        if lvl not in (0, 1) or (name, lvl) in done:
+        if lvl not in ROW_KERNELS.get(name, ()) or (name, lvl) in done:
             continue
         if name == "tiled_conv3d" and (r["kw"].get("residual") is None
                                        or r["kw"].get("res_w") is not None):
@@ -659,14 +791,23 @@ def unmasked_checks(records, kern, plain, levels, failures):
         want = plain[name](*a, **kw)
         err, scale = rel_err(got, want)
         bitwise = bool(torch.equal(got, again))
-        if not (err <= CONV_REL_TOL * scale and bitwise):
-            failures.append((key, "unmasked inputs", err, CONV_REL_TOL * scale, bitwise))
+        extra = {}
+        if name == "tiled_conv3d_prefolded":
+            flat = tc._flat(tc._row_cells(a[2], kw["tile_shape"]), got.shape)
+            dead = flat[kw["occ"].reshape(-1)[flat] == 0]
+            extra["unoccupied_exact_zeros"] = bool(
+                (got.reshape(-1, got.shape[3])[dead] == 0).all())
+            extra["unoccupied_listed_cells"] = int(dead.numel())
+        if not (err <= CONV_REL_TOL * scale and bitwise and all(extra.values())):
+            failures.append((key, "unmasked inputs", err, CONV_REL_TOL * scale,
+                             bitwise, extra))
         emit({"phase": 1, "kernel": name, "check": "unmasked_inputs", "level": lvl,
               "config": [str(v) for v in key[1:]], "max_abs_err": err,
               "ref_max": scale, "tol": CONV_REL_TOL * scale,
-              "bitwise_repeat": bitwise})
+              "bitwise_repeat": bitwise, **extra})
         del got, again, want, a, kw
-    if len(done) != 2 * len(ROW_KERNELS):
+    want_done = {(n, lvl) for n, lvls in ROW_KERNELS.items() for lvl in lvls}
+    if done != want_done:
         failures.append(("unmasked inputs: checked only", sorted(done)))
 
 
@@ -678,7 +819,7 @@ def phase1(pipe, scene):
     import canonicalvoting_tpu_torch.ops.tiled_conv as tc
 
     plain = {"tiled_conv3d": tc.tiled_conv3d_plain,
-             "tiled_conv3d_prefolded": tc.tiled_conv3d_prefolded_plain,
+             "tiled_conv3d_prefolded": prefolded_plain,
              "tiled_down2": tc.tiled_down2_plain,
              "tiled_up2": tc.tiled_up2_plain, "hv_splat": hs.hv_splat_plain,
              "hv_splat6": functools.partial(hs.hv_splat_plain, channels=6),
@@ -689,8 +830,10 @@ def phase1(pipe, scene):
     # the separate path's stem calls; the pipeline is dropped with the
     # records, so that phase 2 holds the joint path's memory alone
     sep = build_separate()
+    sep_args = sep.prepare_quantized(*quantize(scene))
     records = record_calls(pipe, sep, args, planted_rows(scene, args),
-                           sep.prepare_quantized(*quantize(scene)))
+                           sep_args,
+                           separate_rows(scene, sep_args, len(sep.categories)))
     del sep
     occ_of = {tuple(r["kw"]["occ"].shape): r["kw"]["occ"]
               for r in records.values() if r["name"] == "tiled_conv3d"}
@@ -699,8 +842,9 @@ def phase1(pipe, scene):
         occ_of, key=lambda sh: -sh[0] * sh[1] * sh[2]))}
     summary = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                    "bound_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-                   "operations": 0.0,
-                   "fill_ms": 0.0 if n in FILLED else None} for n in kern}
+                   "operations": 0.0, "host_ms": 0.0,
+                   "fill_ms": 0.0 if n in FILLED else None,
+                   "vote_ms": 0.0 if n == "hv_splat" else None} for n in kern}
     failures = []
     for key, r in records.items():
         name, a, kw = r["name"], r["args"], r["kw"]
@@ -711,17 +855,27 @@ def phase1(pipe, scene):
             extra["bitwise_repeat"] = bool(torch.equal(got, kern[name](*a, **kw)))
             if not extra["bitwise_repeat"]:
                 failures.append((key, "a repeated call differs"))
+        if name == "hv_splat":
+            splat_checks(r, got, failures, extra)
+        if name in SYNC_FREE:
+            extra["sync_free"], why = sync_free(lambda: kern[name](*a, **fresh(kw)))
+            if not extra["sync_free"]:
+                failures.append((key, "host sync inside the call", why))
         if name == "hv_splat_windowed":
             extra["bitwise_equal_hv_splat"] = bool(torch.equal(got, hs.hv_splat(
                 *a, **{k: v for k, v in kw.items() if k != "x_bucket"})))
             if not extra["bitwise_equal_hv_splat"]:
                 failures.append((key, "not bitwise equal to hv_splat"))
-        if name == "hv_splat6":  # each channel within 1e-4 of its own peak
-            errs = [rel_err(got[..., c], want[..., c]) for c in range(6)]
+        # each channel, or each category's grid, within 1e-4 of its own peak
+        parts = ("channels", [(got[..., c], want[..., c]) for c in range(6)]) \
+            if name == "hv_splat6" else ("categories", list(zip(got, want))) \
+            if name == "hv_splat" and got.dim() == 4 else None
+        if parts is not None:
+            errs = [rel_err(g, w) for g, w in parts[1]]
             err, scale = max(e for e, _ in errs), max(m for _, m in errs)
             tol = SPLAT_REL_TOL * scale
-            extra["channels"] = [{"max_abs_err": e, "ref_max": m,
-                                  "tol": SPLAT_REL_TOL * m} for e, m in errs]
+            extra[parts[0]] = [{"max_abs_err": e, "ref_max": m,
+                                "tol": SPLAT_REL_TOL * m} for e, m in errs]
             if not all(e <= SPLAT_REL_TOL * m for e, m in errs):
                 failures.append((key, errs))
         else:
@@ -734,6 +888,7 @@ def phase1(pipe, scene):
         # the into-conv rewrites the same values into its dest on each call
         kw_k, kw_p = fresh(kw), fresh(kw)
         ms = time_ms(lambda: kern[name](*a, **kw_k), 5)
+        extra["host_ms"] = host_ms(lambda: kern[name](*a, **kw_k), 5)
         plain_ms = time_ms(lambda: plain[name](*a, **kw_p), 2)
         del kw_k, kw_p
         if name == "tiled_up2_into":  # the skip copy that builds its dest
@@ -762,8 +917,11 @@ def phase1(pipe, scene):
         s["bound_ms"] += bound_ms * n
         s[bound_by] += bound_ms * n
         s["library_ms"] = None if lib_ms is None else s["library_ms"] + lib_ms * n
+        s["host_ms"] += extra["host_ms"] * n
         if fill_ms is not None:
             s["fill_ms"] += fill_ms * n
+        if name == "hv_splat":
+            s["vote_ms"] += extra["vote_ms"] * n
         emit({"phase": 1, "kernel": name, "config": [str(v) for v in key[1:]],
               "per_scene": n, "max_abs_err": err, "ref_max": scale,
               "tol": tol, "kernel_ms": ms, "fill_ms": fill_ms,
@@ -998,7 +1156,7 @@ def phase_separate(sep, scenes):
     heads_k = sep2.backbones(a)
     out_k = sep2.tail(torch.as_tensor(r, device=heads_k.device), a)
     with patched(du, tiled_conv3d=tc.tiled_conv3d_plain,
-                 tiled_conv3d_prefolded=tc.tiled_conv3d_prefolded_plain,
+                 tiled_conv3d_prefolded=prefolded_plain,
                  tiled_down2=tc.tiled_down2_plain,
                  tiled_up2=tc.tiled_up2_plain), \
             patched(hv, hv_splat=hs.hv_splat_plain):
@@ -1294,7 +1452,9 @@ def main() -> int:
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"],
-                        "fill_ms": s["fill_ms"]})
+                        "fill_ms": s["fill_ms"], "host_ms": s["host_ms"]})
+        if s["vote_ms"] is not None:
+            kernels[-1]["vote_ms"] = s["vote_ms"]
         if name == "tiled_block3d":
             kernels[-1]["launches_from"] = (
                 "phase 1: one check a BasicBlock of a joint pass; no path "

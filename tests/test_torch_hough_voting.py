@@ -111,3 +111,43 @@ def test_splat_refuses_foreign_devices():
                  torch.zeros(3, device="meta"),
                  torch.zeros(3, dtype=torch.int32, device="meta"), 0.1,
                  num_rots=4, grid_shape=(4, 4, 4))
+
+
+def test_categories_in_one_call_match_single_calls_and_jax_pallas_interpret(rng):
+    """xyz, scale and obj with a leading axis of 3 categories over the same
+    points: exactly the three single calls (the plain version loops over
+    them), and each the JAX Pallas splat's grid in interpret mode, at the
+    tolerance of test_obj_grid_matches_jax_pallas_interpret."""
+    points, _, _, _, valid = _scene(rng)
+    cats = [_scene(np.random.RandomState(c + 1))[1:4] for c in range(3)]
+    xyz, scale, obj = (np.stack([c[i] for c in cats]) for i in range(3))
+    kw = dict(res=0.05, num_rots=12, grid_shape=(32, 16, 128))
+    got = _port(points, xyz, scale, obj, valid, **kw)
+    assert got.shape == (3,) + kw["grid_shape"]
+    for c in range(3):
+        np.testing.assert_array_equal(
+            got[c], _port(points, xyz[c], scale[c], obj[c], valid, **kw))
+        want = _jax(points, xyz[c], scale[c], obj[c], valid,
+                    method="pallas_interpret", **kw)
+        np.testing.assert_allclose(got[c], want, atol=2e-2 + 5e-3 * want.max())
+        assert want.max() > 0.3
+    assert hv_splat.launches == 0
+
+
+def test_rotation_table_is_cached_with_the_jax_angles():
+    """The splat's angles are the JAX XLA path's float32 thetas bit for bit;
+    the (cos, sin) table is built once per (num_rots, device) and served
+    from the cache after, so a call copies nothing from the host."""
+    from canonicalvoting_tpu_torch.ops import hv_splat as ths
+
+    thetas, ok = jhv._theta_chunks(120, 8)
+    want = thetas.reshape(-1)[ok.reshape(-1) > 0]
+    got = ths.rotation_angles(120)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    cosv, sinv = ths.rotation_table(120, "cpu")
+    again = ths.rotation_table(120, torch.device("cpu"))
+    assert again[0] is cosv and again[1] is sinv
+    t = torch.from_numpy(want)
+    assert torch.equal(cosv, torch.cos(t)) and torch.equal(sinv, torch.sin(t))
+    assert ths.device_scalar(0.03, "cpu") is ths.device_scalar(0.03, "cpu")

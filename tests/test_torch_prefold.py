@@ -3,10 +3,13 @@ the JAX package's fold_dydz and tiled_conv3d(prefolded=True) in interpret
 mode, and the port's DenseMinkUNet(stem_impl="prefold") against its
 "tiled" stem, as tests/test_separate_eval.py holds the JAX model."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from canonicalvoting_tpu.ops.pallas import tiled_conv as jtc
 
@@ -46,10 +49,13 @@ def test_fold_dydz_matches_jax(rng):
     assert np.all(got[..., 75:] == 0) and np.all(want[..., 75:] == 0)
 
 
-def test_prefolded_conv_matches_jax_interpret(rng):
+@functools.lru_cache(maxsize=None)
+def _stem_case():
     """The tests/test_tiled_conv.py:40 case (k=5, cin=3, tiles 4x4x8, group
-    4) with the stem's epilogue: f32 on both sides, 5 x 75 products summed
-    in another order (atol 1e-5)."""
+    4) with the stem's epilogue, and the JAX kernel's output in interpret
+    mode (computed once for the tests below), from the ``rng`` fixture's
+    seed."""
+    rng = np.random.RandomState(0)
     dims, cin, cout, k, ts, group = (16, 16, 32), 3, 16, 5, (4, 4, 8), 4
     x, occ, cells = _sparse_grid(rng, dims, cin, 200)
     w = (rng.randn(k ** 3, cin, cout) * 0.2).astype(np.float32)
@@ -64,15 +70,64 @@ def test_prefolded_conv_matches_jax_interpret(rng):
         occ=jtc.pack_occ(jnp.asarray(occ_m), jnp.asarray(tiles), ts),
         relu_out=True, tile_shape=ts, kernel_size=k, group=group,
         prefolded=True, interpret=True)
+    args = [torch.from_numpy(a) for a in (xm, w, tiles, scale, bias, occ_m)]
+    return args, dict(tile_shape=ts, kernel_size=k), np.asarray(want)[..., :cout]
+
+
+def test_prefolded_conv_matches_jax_interpret():
+    """f32 on both sides, 5 x 75 products summed in another order (atol
+    1e-5)."""
+    (xm, w, tiles, scale, bias, occ_m), kw, want = _stem_case()
     got = ttc.tiled_conv3d_prefolded(
-        ttc.fold_dydz(torch.from_numpy(xm), k), torch.from_numpy(w),
-        torch.from_numpy(tiles), tile_shape=ts, kernel_size=k,
-        scale=torch.from_numpy(scale), bias=torch.from_numpy(bias),
-        occ=torch.from_numpy(occ_m), relu_out=True)
+        ttc.fold_dydz(xm, kw["kernel_size"]), w, tiles, scale=scale, bias=bias,
+        occ=occ_m, relu_out=True, **kw)
     assert ttc.tiled_conv3d_prefolded.launches == 0  # CPU: the plain version
-    np.testing.assert_allclose(got.numpy(), np.asarray(want)[..., :cout],
-                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
     assert np.abs(got.numpy()).max() > 0.1
+
+
+def test_k_major_stem_weights_row_gemm_matches_jax_interpret():
+    """The kernel's operand layout: prefold_stem_weights' (Cout, k, Cpad)
+    rows against each live row's k x taps of the fold, padded to Cpad and
+    concatenated (one row GEMM, as the occupied-row kernel walks its K
+    steps), then the epilogue; equal to tiled_conv3d_prefolded_plain (which
+    folds the kernel itself) and to the JAX kernel, atol 1e-5 in float32."""
+    (xm, w, tiles, scale, bias, occ_m), kw, want = _stem_case()
+    k, ts = kw["kernel_size"], kw["tile_shape"]
+    xf = ttc.fold_dydz(xm, k)
+    cf = xf.shape[3]
+    wt = ttc.prefold_stem_weights(w, k, dtype=torch.float32, device="cpu")
+    cpad = wt.shape[2]
+    assert wt.shape == (w.shape[2], k, 96) and cpad % ttc.K_CHUNK == 0
+    assert torch.all(wt[..., cf:] == 0)
+    cells = ttc._row_cells(tiles, ts)
+    flat = ttc._flat(cells, xf.shape)
+    live = flat[occ_m.reshape(-1)[flat] > 0]
+    rows = F.pad(xf.reshape(-1, cf), (0, cpad - cf))
+    step = xf.shape[1] * xf.shape[2]  # one x offset in cells
+    a = torch.cat([rows[live + (dx - k // 2) * step] for dx in range(k)], 1)
+    acc = a @ wt.reshape(wt.shape[0], -1).T
+    out = torch.zeros(xf.shape[:3] + (w.shape[2],))
+    out.view(-1, w.shape[2])[live] = torch.clamp_min(acc * scale + bias, 0.0)
+    np.testing.assert_allclose(out.numpy(), want, atol=1e-5)
+    plain = dict(scale=scale, bias=bias, occ=occ_m, relu_out=True, **kw)
+    np.testing.assert_allclose(
+        out.numpy(), ttc.tiled_conv3d_prefolded_plain(xf, w, tiles, **plain),
+        atol=1e-5)
+    assert np.abs(out.numpy()).max() > 0.1
+
+
+def test_prefolded_wrapper_refuses_a_foreign_fold():
+    """A ``wt`` that is not the (Cout, k, Cpad) fold of the stem kernel is
+    refused before any route runs."""
+    w = torch.zeros(125, 3, 8)
+    wt = ttc.prefold_stem_weights(w, 5, dtype=torch.float32, device="cpu")
+    xf = torch.zeros(6, 6, 36, 80)
+    tiles = torch.zeros(1, 3, dtype=torch.int32)
+    for bad in (wt[:, :, :80], wt[:4], wt.to("meta")):
+        with pytest.raises(ValueError, match="wt"):
+            ttc.tiled_conv3d_prefolded(xf, w, tiles, tile_shape=(2, 2, 4),
+                                       kernel_size=5, wt=bad)
 
 
 def test_prefold_stem_model_matches_tiled_stem():

@@ -21,6 +21,7 @@ from canonicalvoting_tpu_torch.data.synthetic import (
 from canonicalvoting_tpu_torch.decode.peeling import PeelConfig
 from canonicalvoting_tpu_torch.eval.separate import SeparateDetectionPipeline
 from canonicalvoting_tpu_torch.models.dense_unet import DenseMinkUNet
+from canonicalvoting_tpu_torch.ops.tiled_conv import prefold_stem_weights
 from canonicalvoting_tpu_torch.ops.voxelize import sparse_quantize
 from canonicalvoting_tpu_torch.utils.weights import jax_state_dict
 
@@ -80,9 +81,18 @@ def setup():
     return state_dicts, variables, pipe, args, planted, jpipe, jargs
 
 
-def test_planted_scene_matches_jax(setup):
+def test_planted_scene_matches_jax(setup, monkeypatch):
+    """The lazy tail splats the three categories in one hv_splat call
+    (objectness with a leading category axis) and finds the JAX package's
+    detections."""
+    import canonicalvoting_tpu_torch.ops.hough_voting as thv
+
     _, _, pipe, args, planted, jpipe, jargs = setup
+    calls, real = [], thv.hv_splat
+    monkeypatch.setattr(thv, "hv_splat", lambda *a, **k: calls.append(
+        tuple(a[3].shape)) or real(*a, **k))
     out = pipe.run_scene(args, planted=planted)
+    assert calls == [(len(CATS), args.valid.shape[0])]
     jout = jax.device_get(jpipe.run_scene(jargs, planted=planted))
     n = out["n_boxes"].numpy()
     np.testing.assert_array_equal(n, np.asarray(jout["n_boxes"]))
@@ -117,6 +127,18 @@ def test_head_rows_match_jax(setup):
         want = np.asarray(apply(v, feats, flat, valid))
         np.testing.assert_allclose(heads[c], want, atol=2e-3, rtol=1e-3)
     assert np.abs(heads).max() > 0.1
+
+
+def test_each_category_stem_is_folded_once(setup):
+    """The prefold stem's weights are folded K-major once per category when
+    the weights are installed: each is prefold_stem_weights of that
+    category's stem kernel."""
+    state_dicts, _, pipe, _, _, _, _ = setup
+    assert len(pipe.stem_wt) == len(CATS)
+    for sd, wt in zip(state_dicts, pipe.stem_wt):
+        want = prefold_stem_weights(torch.as_tensor(sd["conv0p1s1.kernel"]), 5,
+                                    dtype=torch.float32, device="cpu")
+        torch.testing.assert_close(wt, want, rtol=0, atol=0)
 
 
 def test_grouped_equals_single(setup):
