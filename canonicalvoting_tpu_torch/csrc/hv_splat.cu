@@ -23,10 +23,11 @@
 // the JAX XLA path's, in f32 (the TPU kernel rounds its tent products to
 // bf16; these do not).
 //
-// The objectness splat (obj_vote_kernel, channels = 1). One thread per
-// (category, rotation, point) vote, the categories on the grid's y axis so
-// the separate evaluator's nine splat in one launch into one (C, cells)
-// scratch. What bounds it is the atomics, not bytes or arithmetic: up to
+// The plane splats (obj_vote_kernel, channels = 1; vote6_kernel, channels =
+// 6, the non-lazy tails). One thread per (category, rotation, point) vote,
+// the categories on the grid's y axis so the separate evaluator's nine
+// splat in one launch into one (C, cells, channels) scratch. What bounds
+// them is the atomics, not bytes or arithmetic: up to
 // 7.4 M votes x 8 corners a ScanNet-scale scene, and Hough voting makes
 // them collide by design (a box's points at its true rotation, and points
 // whose predicted offset is small at every rotation, hit the same cells),
@@ -51,11 +52,23 @@
 // (1e-5); there it costs one warp vote a warp, and rotations fastest
 // still issues 2.6-6.9x fewer atomics than points fastest (PERF.md).
 //
-// vote6_kernel (channels = 6, the non-lazy tail) is one thread per
-// (rotation, point) vote, points fastest, with 8 x 6 atomics a vote. Each
-// vote is a few dozen f32 operations and the grid is written once, so it
-// is bound by the atomics' traffic to L2; the 64-bit scratch is 8 * CH bytes
-// a cell (302 MB for the six channels of a 256 x 96 x 256 grid).
+// vote6_kernel is the same design over six channels, where a vote without
+// grouping issues 8 x 6 atomics (343 M a ScanNet-scale joint scene;
+// PERF.md). The eight corner weights are computed once a vote; the sums
+// then run one channel at a time, each channel's eight 64-bit values
+// recomputed from them (w, w cos, w sin, w sx, w sy, w sz, each product
+// rounded alone), so a lane holds 8 and not 48 64-bit sums and nothing
+// spills. The channels share the group, so the whole-warp test is made once
+// a warp. The whole-warp path depends on warps that are one group (65% and
+// 79% of them on the planted rows, 1e-5 and 6e-7 on the backbones' rows):
+// without it the vote kernel measured 14% and 55% slower on the planted
+// rows (joint, nine categories), 14% slower on the backbones' joint rows,
+// where it almost never fires, and no faster on their nine categories
+// (PERF.md, alternated runs), so it stays. One template for both kernels measured 5-12% slower on
+// obj_vote_kernel's mixed groups (PERF.md), so the two stay apart. The
+// 64-bit scratch is 8 bytes a cell, channel and category (302 MB for six
+// channels of a 256 x 96 x 256 grid, 2.7 GB for nine categories); its fill
+// and the conversion are outside the vote kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -203,38 +216,66 @@ __global__ void __launch_bounds__(256) obj_vote_kernel(
       atomicAdd(acc + base + ((b >> 2) * gy + ((b >> 1) & 1)) * gz + (b & 1), v[b]);
 }
 
-__global__ void vote6_kernel(const float* __restrict__ points,
-                             const float* __restrict__ xyz,
-                             const float* __restrict__ scale,
-                             const float* __restrict__ obj,
-                             const float* __restrict__ valid, int n,
-                             const float* __restrict__ cosv,
-                             const float* __restrict__ sinv, int num_rots,
-                             const float* __restrict__ corner,
-                             const int* __restrict__ dims, float res, int gy,
-                             int gz, unsigned long long* __restrict__ acc) {
+__global__ void __launch_bounds__(256) vote6_kernel(
+    const float* __restrict__ points, const float* __restrict__ xyz,
+    const float* __restrict__ scale, const float* __restrict__ obj,
+    const float* __restrict__ valid, int n, const float* __restrict__ cosv,
+    const float* __restrict__ sinv, int num_rots, const float* __restrict__ corner,
+    const int* __restrict__ dims, float res, int gy, int gz, long long cells,
+    unsigned long long* __restrict__ acc) {
+  const int cat = blockIdx.y;  // category c: rows c of xyz, scale, obj; grid c
+  xyz += 3LL * n * cat;
+  scale += 3LL * n * cat;
+  obj += (long long)n * cat;
+  acc += 6 * cells * cat;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)n * num_rots) return;
-  const int r = (int)(i / n), p = (int)(i - (long long)r * n);
-  const float c = cosv[r], s = sinv[r];
-  int f[3];
-  float w1[3], ob;
-  if (!place_vote(points, xyz, scale, obj, valid, p, c, s, corner, dims, res, f, w1, ob))
-    return;
+  const int lane = threadIdx.x & 31;
+  int f[3] = {0, 0, 0};
+  float w1[3] = {0.f, 0.f, 0.f}, ob = 0.f;
+  float c = 0.f, s = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;  // channels 1-5's factors of w
+  bool in = false;
+  if (i < (long long)n * num_rots) {  // rotations fastest: a warp walks one point's arc
+    const int p = (int)(i / num_rots), r = (int)(i - (long long)p * num_rots);
+    c = cosv[r];
+    s = sinv[r];
+    in = place_vote(points, xyz, scale, obj, valid, p, c, s, corner, dims, res, f, w1, ob);
+    if (in) {
+      sx = scale[3 * p];
+      sy = scale[3 * p + 1];
+      sz = scale[3 * p + 2];
+    }
+  }
+  const int base = (f[0] * gy + f[1]) * gz + f[2];
+  // lanes out of range key apart (-1 - lane) and join no group
+  const unsigned peers = __match_any_sync(0xffffffffu, in ? base : -1 - lane);
+  const bool whole = __all_sync(0xffffffffu, peers == 0xffffffffu);  // one cell for the warp
+  const bool leader = in && (peers & ((1u << lane) - 1u)) == 0u;
+  float wc[8];
 #pragma unroll
-  for (int bx = 0; bx < 2; ++bx)
+  for (int b = 0; b < 8; ++b)
+    wc[b] = in ? corner_weight(w1, b >> 2, (b >> 1) & 1, b & 1, ob) : 0.f;
+#pragma unroll 1
+  for (int j = 0; j < 6; ++j) {
+    const float fj = j == 1 ? c : j == 2 ? s : j == 3 ? sx : j == 4 ? sy : sz;
+    unsigned long long v[8];
 #pragma unroll
-    for (int by = 0; by < 2; ++by)
+    for (int b = 0; b < 8; ++b)
+      v[b] = in ? to_fixed(j == 0 ? wc[b] : __fmul_rn(wc[b], fj)) : 0ull;
+    if (whole) {
+      const unsigned long long sum = warp_sums8(v);
+      const int b = (lane >> 2) & 7;
+      if ((lane & 3) == 0 && sum != 0ull)
+        atomicAdd(acc + 6LL * (base + ((b >> 2) * gy + ((b >> 1) & 1)) * gz + (b & 1)) + j, sum);
+      continue;
+    }
+    sum_peers(peers, v);
+    if (!leader) continue;
 #pragma unroll
-      for (int bz = 0; bz < 2; ++bz) {
-        const float w = corner_weight(w1, bx, by, bz, ob);
-        const long long cell = ((long long)(f[0] + bx) * gy + (f[1] + by)) * gz + (f[2] + bz);
-        const float ch[6] = {w, __fmul_rn(w, c), __fmul_rn(w, s),
-                             __fmul_rn(w, scale[3 * p]), __fmul_rn(w, scale[3 * p + 1]),
-                             __fmul_rn(w, scale[3 * p + 2])};
-#pragma unroll
-        for (int j = 0; j < 6; ++j) atomicAdd(acc + cell * 6 + j, to_fixed(ch[j]));
-      }
+    for (int b = 0; b < 8; ++b)
+      if (v[b] != 0ull)
+        atomicAdd(acc + 6LL * (base + ((b >> 2) * gy + ((b >> 1) & 1)) * gz + (b & 1)) + j,
+                  v[b]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -357,17 +398,17 @@ __global__ void fixed_to_float_kernel(const unsigned long long* __restrict__ acc
 
 }  // namespace
 
-// channels 1 (n_cat categories: xyz (n_cat, n, 3), scale (n_cat, n, 3),
-// obj (n_cat, n); acc n_cat grids) or 6 (one category); acc: (n_cat, gx,
-// gy, gz, channels) uint64 fixed point, zeroed by the caller. corner (3,)
-// float32 and dims (3,) int32, clipped to (gx, gy, gz), live on the device.
+// channels 1 or 6, n_cat categories over the same points: xyz (n_cat, n,
+// 3), scale (n_cat, n, 3), obj (n_cat, n); acc: (n_cat, gx, gy, gz,
+// channels) uint64 fixed point, zeroed by the caller. corner (3,) float32
+// and dims (3,) int32, clipped to (gx, gy, gz), live on the device.
 extern "C" int hv_votes_launch(const float* points, const float* xyz, const float* scale,
                                const float* obj, const float* valid, int n, int n_cat,
                                const float* cosv, const float* sinv, int num_rots,
                                const float* corner, const int* dims, float res, int gx,
                                int gy, int gz, int channels, void* acc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!((channels == 1 && n_cat >= 1 && n_cat <= 65535) || (channels == 6 && n_cat == 1)))
+  if ((channels != 1 && channels != 6) || n_cat < 1 || n_cat > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((long long)gx * gy * gz >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const long long votes = (long long)n * num_rots;
@@ -375,14 +416,10 @@ extern "C" int hv_votes_launch(const float* points, const float* xyz, const floa
   const int nt = 256;
   const unsigned blocks = (unsigned)((votes + nt - 1) / nt);
   auto* a = static_cast<unsigned long long*>(acc);
-  if (channels == 6) {
-    vote6_kernel<<<blocks, nt, 0, s>>>(points, xyz, scale, obj, valid, n, cosv, sinv, num_rots,
-                                       corner, dims, res, gy, gz, a);
-  } else {
-    obj_vote_kernel<<<dim3(blocks, n_cat), nt, 0, s>>>(
-        points, xyz, scale, obj, valid, n, cosv, sinv, num_rots, corner, dims, res, gy, gz,
-        (long long)gx * gy * gz, a);
-  }
+  auto* kernel = channels == 6 ? vote6_kernel : obj_vote_kernel;
+  kernel<<<dim3(blocks, n_cat), nt, 0, s>>>(points, xyz, scale, obj, valid, n, cosv, sinv,
+                                            num_rots, corner, dims, res, gy, gz,
+                                            (long long)gx * gy * gz, a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,11 +15,11 @@
 // grids on the card are refused by the wrappers, the plain versions serve
 // them on the CPU.
 //
-// tiled_conv3d, its prefolded stem and tiled_up2: occupied-row GEMMs
-// (conv_rows_kernel, up_rows_kernel). Their function needs the MACs of
-// occupied rows only: an unoccupied output cell is masked to zero (plus the
-// plain residual, if any), and an unoccupied coarse parent has no occupied
-// child. The listed tiles hold 5-26% occupied cells at the backbone's
+// tiled_conv3d, its prefolded stem, tiled_down2 and tiled_up2: occupied-row
+// GEMMs (conv_rows_kernel, up_rows_kernel). Their function needs the MACs
+// of occupied rows only: an unoccupied output cell is masked to zero (plus
+// the plain residual, if any), and an unoccupied coarse parent has no
+// occupied child. The listed tiles hold 5-26% occupied cells at the backbone's
 // levels and every listed tile holds at least one, so skipping empty 64-row
 // blocks saves nothing; the rows are compacted instead:
 // - compact_kernel lists the live rows of each call on the card (a warp
@@ -77,23 +77,30 @@
 // its cells as occupied, so compaction cuts its MACs 17x; its epilogue is
 // BN affine, mask, ReLU, with no residual and no K split (937 row blocks).
 //
-// DOWN and UPI, the modes of tc_kernel, are implicit GEMMs over the
-// flattened cells of all listed tiles (row = tile * cells + local cell, z
-// fastest) on WMMA bf16 tiles with f32 accumulation. Columns are output
-// channels; the reduction walks taps x input channels (kg = tap * cin + c,
-// taps x-fastest). A tap's input cell is the row's base cell plus a
-// constant offset, because the grids' zero margins absorb every halo read.
-// They run the MACs of every listed cell and stage each operand slice
-// through shared memory with no overlap of loads and math.
+// tiled_down2 (the stride-2 k = 2 conv out[o] = sum_d W[d] in[2o + d]) is
+// the same conv_rows_kernel with down = 1: its rows are the live COARSE
+// cells (compact_kernel over the listed coarse tiles against the coarse
+// occupancy; with no occupancy every listed cell), each row keeps two cells
+// (its tap base, the fine cell 2o in the fine grid, and its own cell in the
+// coarse grid, where occ is read and out written), and the K loop walks the
+// 8 taps {0, 1}^3 x-fastest at offsets (dx * Ym + dy) * Zm + dz of the fine
+// grid by 32-channel chunks against (cout, 8, cpad) K-major weights. Its
+// epilogue is BN affine, mask, ReLU, with no residual; an unoccupied listed
+// cell keeps the wrapper's zero. At L3 and L4 (10-70 live row blocks) K
+// splits over blocks as for the convs. The listed coarse cells are 12-55%
+// occupied at the backbone's levels, so the compaction cuts the MACs 2-8x.
 //
-// tiled_up2_into (UPI) is the transposed conv's GEMM over the coarse parents
-// of the listed fine tiles (8 * Cout columns, one per child parity), writing
-// its conv channels into a caller's grid at a channel offset and pitch:
-// dest holds the skip in channels [0, skip_c) and receives the conv at
-// [skip_c, skip_c + cout), the layout [skip | conv] of the JAX kernel;
-// nothing else of dest is touched. The TPU kernel's lane pack of the
-// occupancy (pack_occ_updma) is a TPU layout; this mode reads the margined
-// occupancy grid as the others do.
+// tiled_up2_into (tc_kernel) is an implicit GEMM on WMMA bf16 tiles with
+// f32 accumulation over the coarse parents of the listed fine tiles (row =
+// parent, z fastest; 8 * Cout columns, one per child parity), reducing over
+// the parent's input channels, writing its conv channels into a caller's
+// grid at a channel offset and pitch: dest holds the skip in channels
+// [0, skip_c) and receives the conv at [skip_c, skip_c + cout), the layout
+// [skip | conv] of the JAX kernel; nothing else of dest is touched. It runs
+// the MACs of every listed parent and stages each operand slice through
+// shared memory with no overlap of loads and math. The TPU kernel's lane
+// pack of the occupancy (pack_occ_updma) is a TPU layout; it reads the
+// margined occupancy grid as the others do.
 //
 // tiled_block3d (block_kernel, below) runs a whole BasicBlock per tile:
 // conv1 over the tile grown by one cell, kept in a per-block global scratch
@@ -154,59 +161,44 @@ __device__ __forceinline__ long long flat(const Grid& g, int x, int y, int z) {
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // ---------------------------------------------------------------------------
-// tc_kernel: the WMMA implicit GEMMs of tiled_down2 (DOWN) and
-// tiled_up2_into (UPI). A block owns TM = 64 rows x TN = 64
-// columns; each of its 4 warps keeps 16 rows x 64 columns in 4 accumulator
-// fragments. Operands are staged through shared memory in TK = 32 slices
-// with 16-byte loads where channel counts are multiples of 8.
+// tc_kernel: the WMMA implicit GEMM of tiled_up2_into. A block owns TM = 64
+// coarse parents x TN = 64 of the 8 * cout columns (one per child parity
+// and output channel); each of its 4 warps keeps 16 rows x 64 columns in 4
+// accumulator fragments. Operands are staged through shared memory in
+// TK = 32 slices with 16-byte loads where channel counts are multiples of 8.
 
 constexpr int TM = 64, TN = 64, TK = 32, TT = 128;
 constexpr int LDA = TK + 8, LDB = TN + 8, LDC = TN + 4;
-enum { DOWN = 1, UPI = 4 };
 
-template <int MODE>
 __global__ void __launch_bounds__(TT) tc_kernel(
     const __nv_bfloat16* __restrict__ x, int cin, Grid gin,
-    const __nv_bfloat16* __restrict__ w, int k, int cout, Tiles tl, int n_rows,
-    Grid gout, const float* __restrict__ scale, const float* __restrict__ bias,
+    const __nv_bfloat16* __restrict__ w, int cout, Tiles tl, int n_rows, Grid gout,
+    const float* __restrict__ scale, const float* __restrict__ bias,
     const float* __restrict__ occ, int ctot, int c_off, int relu, int vec_a, int vec_b,
     __nv_bfloat16* __restrict__ out) {
   namespace wm = nvcuda::wmma;
   __shared__ __align__(128) __nv_bfloat16 As[TM * LDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[TK * LDB];
   __shared__ __align__(128) float Cs[TM * LDC];
-  __shared__ long long a_base[TM];  // element offset of the row's tap-0 input
-  __shared__ long long o_cell[TM];  // output cell (DOWN), valid flag (UPI)
-  __shared__ int pc[TM][3];         // UPI: parent interior coordinates
-  constexpr bool kUp = MODE == UPI;
+  __shared__ long long a_base[TM];  // element offset of the parent's input, -1 past the rows
+  __shared__ int pc[TM][3];         // parent interior coordinates
   const int tid = threadIdx.x, warp = tid / 32;
   const int n0 = blockIdx.y * TN;
-  const int K = kUp ? cin : k * k * k * cin;
-  const int N = kUp ? 8 * cout : cout;
+  const int K = cin, N = 8 * cout;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
   if (tid < TM) {
     const int r = blockIdx.x * TM + tid;
-    long long base = -1, oc = -1;
-    if (kUp) {
-      if (r < n_rows) {
-        int px, py, pz;
-        parent_cell(tl, r, px, py, pz);
-        pc[tid][0] = px;
-        pc[tid][1] = py;
-        pc[tid][2] = pz;
-        base = flat(gin, px + MX, py + MY, pz + MZ) * cin;
-        oc = 0;
-      }
-    } else {
-      int ix, iy, iz;
-      if (row_cell(tl, r, ix, iy, iz)) {  // DOWN: the fine cell 2o, taps d in {0, 1}^3
-        oc = flat(gout, ix + MX, iy + MY, iz + MZ);
-        base = flat(gin, 2 * ix + MX, 2 * iy + MY, 2 * iz + MZ) * cin;
-      }
+    long long base = -1;
+    if (r < n_rows) {
+      int px, py, pz;
+      parent_cell(tl, r, px, py, pz);
+      pc[tid][0] = px;
+      pc[tid][1] = py;
+      pc[tid][2] = pz;
+      base = flat(gin, px + MX, py + MY, pz + MZ) * cin;
     }
     a_base[tid] = base;
-    o_cell[tid] = oc;
   }
   __syncthreads();
 
@@ -215,61 +207,37 @@ __global__ void __launch_bounds__(TT) tc_kernel(
   for (int j = 0; j < 4; ++j) wm::fill_fragment(acc[j], 0.f);
 
   for (int k0 = 0; k0 < K; k0 += TK) {
-    // A: the rows' inputs for reduction indices k0 .. k0 + TK
+    // A: the parents' input channels k0 .. k0 + TK
     if (vec_a) {
       for (int v = tid; v < TM * TK / 8; v += TT) {
         const int m = v / (TK / 8), kq = (v % (TK / 8)) * 8, kg = k0 + kq;
         uint4 val = make_uint4(0, 0, 0, 0);
-        if (a_base[m] >= 0 && kg < K) {
-          long long off = kg;
-          if (!kUp) {
-            const int tap = kg / cin, c = kg - tap * cin;
-            const int dx = tap % k, dy = (tap / k) % k, dz = tap / (k * k);
-            off = ((long long)dx * gin.ym + dy) * gin.zm * cin + (long long)dz * cin + c;
-          }
-          val = *reinterpret_cast<const uint4*>(x + a_base[m] + off);
-        }
+        if (a_base[m] >= 0 && kg < K) val = *reinterpret_cast<const uint4*>(x + a_base[m] + kg);
         *reinterpret_cast<uint4*>(As + m * LDA + kq) = val;
       }
     } else {
       for (int e = tid; e < TM * TK; e += TT) {
         const int m = e / TK, kq = e % TK, kg = k0 + kq;
-        __nv_bfloat16 val = zero;
-        if (a_base[m] >= 0 && kg < K) {
-          long long off = kg;
-          if (!kUp) {
-            const int tap = kg / cin, c = kg - tap * cin;
-            const int dx = tap % k, dy = (tap / k) % k, dz = tap / (k * k);
-            off = ((long long)dx * gin.ym + dy) * gin.zm * cin + (long long)dz * cin + c;
-          }
-          val = x[a_base[m] + off];
-        }
-        As[m * LDA + kq] = val;
+        As[m * LDA + kq] = (a_base[m] >= 0 && kg < K) ? x[a_base[m] + kg] : zero;
       }
     }
-    // B: weight rows k0 .. k0 + TK, columns n0 .. n0 + TN
+    // B: W[parity][k0 .. k0 + TK][channel] for columns n0 .. n0 + TN
     if (vec_b) {
       for (int v = tid; v < TK * TN / 8; v += TT) {
         const int kk = v / (TN / 8), nq = (v % (TN / 8)) * 8;
         const int kg = k0 + kk, n = n0 + nq;
         uint4 val = make_uint4(0, 0, 0, 0);
-        if (kg < K && n < N) {
-          const long long src = kUp
-              ? ((long long)(n / cout) * cin + kg) * cout + n % cout
-              : (long long)kg * cout + n;
-          val = *reinterpret_cast<const uint4*>(w + src);
-        }
+        if (kg < K && n < N)
+          val = *reinterpret_cast<const uint4*>(
+              w + ((long long)(n / cout) * cin + kg) * cout + n % cout);
         *reinterpret_cast<uint4*>(Bs + kk * LDB + nq) = val;
       }
     } else {
       for (int e = tid; e < TK * TN; e += TT) {
         const int kk = e / TN, nq = e % TN, kg = k0 + kk, n = n0 + nq;
-        __nv_bfloat16 val = zero;
-        if (kg < K && n < N) {
-          val = kUp ? w[((long long)(n / cout) * cin + kg) * cout + n % cout]
-                    : w[(long long)kg * cout + n];
-        }
-        Bs[kk * LDB + nq] = val;
+        Bs[kk * LDB + nq] = (kg < K && n < N)
+                                ? w[((long long)(n / cout) * cin + kg) * cout + n % cout]
+                                : zero;
       }
     }
     __syncthreads();
@@ -291,38 +259,20 @@ __global__ void __launch_bounds__(TT) tc_kernel(
     wm::store_matrix_sync(Cs + warp * 16 * LDC + j * 16, acc[j], LDC, wm::mem_row_major);
   __syncthreads();
 
-  // UPI writes into a (ctot)-channel grid at channels [c_off, c_off + cout)
+  // column n = d * cout + co: channel c_off + co of child 2p + d in the
+  // (ctot)-channel grid
   for (int e = tid; e < TM * TN; e += TT) {
     const int m = e / TN, nn = e % TN, n = n0 + nn;
-    if (o_cell[m] < 0 || n >= N) continue;
-    int co = n;
-    long long oc = o_cell[m];
-    if (kUp) {
-      const int d = n / cout;
-      co = n - d * cout;
-      oc = flat(gout, 2 * pc[m][0] + (d & 1) + MX, 2 * pc[m][1] + ((d >> 1) & 1) + MY,
-                2 * pc[m][2] + (d >> 2) + MZ);
-    }
+    if (a_base[m] < 0 || n >= N) continue;
+    const int d = n / cout, co = n - d * cout;
+    const long long oc = flat(gout, 2 * pc[m][0] + (d & 1) + MX,
+                              2 * pc[m][1] + ((d >> 1) & 1) + MY, 2 * pc[m][2] + (d >> 2) + MZ);
     float v = Cs[m * LDC + nn];
     if (scale != nullptr) v = v * scale[co] + bias[co];
     if (occ != nullptr) v = v * occ[oc];
     if (relu) v = fmaxf(v, 0.f);
     out[oc * ctot + c_off + co] = __float2bfloat16(v);
   }
-}
-
-template <int MODE>
-void launch_tc(const void* x, int cin, Grid gin, const void* w, int k, int cout,
-               Tiles tl, int n_rows, Grid gout, const float* scale, const float* bias,
-               const float* occ, int ctot, int c_off, int relu, void* out, cudaStream_t s) {
-  const int n = MODE == UPI ? 8 * cout : cout;
-  const dim3 grid((n_rows + TM - 1) / TM, (n + TN - 1) / TN);
-  const int vec_a = cin % 8 == 0 && aligned16(x);
-  const int vec_b = cout % 8 == 0 && aligned16(w);
-  tc_kernel<MODE><<<grid, TT, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), cin, gin,
-      static_cast<const __nv_bfloat16*>(w), k, cout, tl, n_rows, gout, scale, bias, occ,
-      ctot, c_off, relu, vec_a, vec_b, static_cast<__nv_bfloat16*>(out));
 }
 
 // ---------------------------------------------------------------------------
@@ -517,22 +467,23 @@ __global__ void __launch_bounds__(256) compact_kernel(Tiles tl, Grid g, const fl
 
 // One K phase of a conv block: x's taps (k^3 of them, x-fastest, offsets
 // from the row's cell; with xonly the k x offsets alone, over the prefolded
-// stem's fold) by 32-channel chunks against wt (cout, taps, cpad). The fused
-// 1x1 downsample is the same loader with k = 1 over the residual.
+// stem's fold; with down the 8 taps {0, 1}^3 of the stride-2 down, from
+// the fine cell 2o) by 32-channel chunks against wt (cout, taps, cpad). The
+// fused 1x1 downsample is the same loader with k = 1 over the residual.
 struct TapLoader {
   const __nv_bfloat16* x;
-  int cin, k, xonly, vec;
-  Grid g;
+  int cin, k, xonly, down, vec;
+  Grid g;  // x's grid
   const __nv_bfloat16* wt;
   int cpad, cout, n0;
-  const int* cell;  // shared: the rows' cells, -1 past the live rows
+  const int* cell;  // shared: the rows' tap-base cells in g, -1 past the live rows
 
   __device__ __forceinline__ int taps() const { return xonly ? k : k * k * k; }
   __device__ __forceinline__ int steps() const { return taps() * (cpad / GK); }
 
   template <int BN>
   __device__ __forceinline__ void load(int s, uint8_t* st) const {
-    const int nkc = cpad / GK, h = k / 2;
+    const int nkc = cpad / GK, h = down ? 0 : k / 2;
     const int tap = s / nkc, c0 = (s - tap * nkc) * GK;
     const int dx = xonly ? tap : tap % k;
     const int dy = xonly ? h : (tap / k) % k, dz = xonly ? h : tap / (k * k);
@@ -615,7 +566,9 @@ __device__ __forceinline__ void ring_gemm(const TapLoader& ld, int first, int st
 struct ConvRows {
   const __nv_bfloat16* x;
   int cin, cpad, k, xonly;  // xonly: the prefolded stem's k x taps
-  Grid g;
+  int down;                 // the stride-2 down (k = 2): x is the fine grid
+  Grid gin;                 // x's grid
+  Grid g;                   // the rows' grid: occ, res, out
   const __nv_bfloat16* wt;  // (cout, k^3 or k, cpad)
   int cout;
   Tiles tl;
@@ -664,13 +617,16 @@ __global__ void __launch_bounds__(GT, 1) conv_rows_kernel(const __grid_constant_
   uint8_t* ring = smem;
   float* cs = reinterpret_cast<float*>(smem);  // epilogue staging, once the ring drains
   float* rs = reinterpret_cast<float*>(smem + conv_ring_bytes<BN>());
-  __shared__ int cell[GM];
+  __shared__ int cell[GM];   // the row's tap base in gin (the down: fine cell 2o)
+  __shared__ int ocell[GM];  // the row's own cell in g, -1 past the live rows
   __shared__ float orow[GM];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n0 = blockIdx.y * BN;
   const int n_live = p.count[0];
-  const TapLoader main_ld{p.x, p.cin, p.k, p.xonly, p.vec_a, p.g, p.wt, p.cpad, p.cout, n0, cell};
-  const TapLoader res_ld{p.res, p.cres, 1, 0, p.vec_r, p.g, p.rwt, p.crpad, p.cout, n0, cell};
+  const TapLoader main_ld{p.x, p.cin, p.k, p.xonly, p.down, p.vec_a, p.gin, p.wt, p.cpad,
+                          p.cout, n0, cell};
+  const TapLoader res_ld{p.res, p.cres, 1, 0, 0, p.vec_r, p.g, p.rwt, p.crpad, p.cout, n0,
+                         ocell};
   float acc[NH][NW / 2];
   const int n_split = k_splits(p, n_live, gridDim.y);
   const int steps = main_ld.steps();
@@ -681,15 +637,17 @@ __global__ void __launch_bounds__(GT, 1) conv_rows_kernel(const __grid_constant_
     const int rb = it / n_split, sp = it - rb * n_split;
     if (tid < GM) {
       const int i = rb * GM + tid;
-      int c = -1;
+      int c = -1, oc = -1;
       float o = 1.f;
       if (i < n_live) {
         int ix, iy, iz;
         row_cell(p.tl, p.rows[i], ix, iy, iz);
-        c = static_cast<int>(flat(p.g, ix + MX, iy + MY, iz + MZ));
-        if (p.occ != nullptr) o = p.occ[c];
+        oc = static_cast<int>(flat(p.g, ix + MX, iy + MY, iz + MZ));
+        c = p.down ? static_cast<int>(flat(p.gin, 2 * ix + MX, 2 * iy + MY, 2 * iz + MZ)) : oc;
+        if (p.occ != nullptr) o = p.occ[oc];
       }
       cell[tid] = c;
+      ocell[tid] = oc;
       orow[tid] = o;
     }
     __syncthreads();
@@ -708,7 +666,7 @@ __global__ void __launch_bounds__(GT, 1) conv_rows_kernel(const __grid_constant_
             if (p.occ != nullptr) v = v * orow[m];
             if (n_split == 1) {
               rs[m * LD + n] = v;
-            } else if (cell[m] >= 0 && gn < p.cout) {  // the slice after the splits
+            } else if (ocell[m] >= 0 && gn < p.cout) {  // the slice after the splits
               p.part[((long long)n_split * p.n_list + rb * GM + m) * p.cout + gn] = v;
             }
           }
@@ -725,10 +683,10 @@ __global__ void __launch_bounds__(GT, 1) conv_rows_kernel(const __grid_constant_
           for (int e = 0; e < 4; ++e) {
             const int m = warp * 16 + (lane >> 2) + 8 * (e >> 1);
             const int n = hh * NW + q * 8 + (lane & 3) * 2 + (e & 1), gn = n0 + n;
-            if (cell[m] >= 0 && gn < p.cout)
+            if (ocell[m] >= 0 && gn < p.cout)
               p.part[((long long)sp * p.n_list + rb * GM + m) * p.cout + gn] = acc[hh][4 * q + e];
           }
-      __syncthreads();  // cell is rewritten by the next item
+      __syncthreads();  // cell and ocell are rewritten by the next item
       continue;
     }
     // BN affine, then the mask, into the staging tile
@@ -748,7 +706,7 @@ __global__ void __launch_bounds__(GT, 1) conv_rows_kernel(const __grid_constant_
     __syncthreads();
     // then the residual and ReLU, 8 channels a thread
     for (int e = tid; e < GM * (BN / 8); e += GT) {
-      const int m = e / (BN / 8), n = (e % (BN / 8)) * 8, gn = n0 + n, cl = cell[m];
+      const int m = e / (BN / 8), n = (e % (BN / 8)) * 8, gn = n0 + n, cl = ocell[m];
       if (cl < 0 || gn >= p.cout) continue;
       const long long o = (long long)cl * p.cout + gn;
       float v[8];
@@ -778,7 +736,7 @@ __global__ void __launch_bounds__(GT, 1) conv_rows_kernel(const __grid_constant_
         }
       }
     }
-    __syncthreads();  // cell, cs and rs are rewritten by the next row block
+    __syncthreads();  // cell, ocell, cs and rs are rewritten by the next row block
   }
 }
 
@@ -1092,6 +1050,18 @@ int block_cols(int cout) {
   return cout <= 32 ? 32 : cout <= 64 ? 64 : cout <= 96 ? 96 : cout <= 128 ? 128 : 256;
 }
 
+// conv_rows_kernel (and its K-split reduction) at the narrowest block width
+// that holds cout
+cudaError_t launch_conv_cols(const ConvRows& p, int n_list, cudaStream_t s) {
+  switch (block_cols(p.cout)) {
+    case 32: return launch_conv_rows<32>(p, n_list, s);
+    case 64: return launch_conv_rows<64>(p, n_list, s);
+    case 96: return launch_conv_rows<96>(p, n_list, s);
+    case 128: return launch_conv_rows<128>(p, n_list, s);
+    default: return launch_conv_rows<256>(p, n_list, s);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The fused BasicBlock (block_kernel). One block owns one listed tile at a
 // time, looping over the list with a stride of the grid. conv1 runs over the
@@ -1099,8 +1069,8 @@ int block_cols(int cout) {
 // the block's own slice of a global scratch, in bfloat16 as the two-conv path
 // rounds it; conv2 then reads its taps from that slice, adds the residual (the
 // input's own channels, or the fused 1x1 downsample GEMM) and writes the
-// tile. Both are the same WMMA GEMM as tc_kernel (conv_gemm), row blocks of
-// 64 cells. The scratch is written and read inside one kernel, so it is read
+// tile. Both are a WMMA GEMM (conv_gemm) in tc_kernel's tiles, row blocks
+// of 64 cells. The scratch is written and read inside one kernel, so it is read
 // through plain loads (no __restrict__, which could route them through the
 // non-coherent read-only cache); __syncthreads orders the writes of one
 // phase before the reads of the next.
@@ -1307,22 +1277,15 @@ extern "C" int tiled_conv3d_launch(
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* rb = static_cast<const __nv_bfloat16*>(res);
   auto* ob = static_cast<__nv_bfloat16*>(out);
-  const ConvRows p{xb, cin, cpad, k, 0, g, static_cast<const __nv_bfloat16*>(wt), cout, tl,
-                   rows, count, scale, bias, occ, rb, cres, crpad,
+  const ConvRows p{xb, cin, cpad, k, 0, 0, g, g, static_cast<const __nv_bfloat16*>(wt), cout,
+                   tl, rows, count, scale, bias, occ, rb, cres, crpad,
                    static_cast<const __nv_bfloat16*>(rwt), rscale, rbias, relu,
                    cin % 8 == 0 && aligned16(x),
                    rwt != nullptr && cres % 8 == 0 && aligned16(res),
                    cout % 8 == 0 && aligned16(out) &&
                        (res == nullptr || rwt != nullptr || aligned16(res)),
                    ob, part, s_max, n_rows, 2 * sm_count()};
-  cudaError_t e;
-  switch (block_cols(cout)) {
-    case 32: e = launch_conv_rows<32>(p, n_rows, s); break;
-    case 64: e = launch_conv_rows<64>(p, n_rows, s); break;
-    case 96: e = launch_conv_rows<96>(p, n_rows, s); break;
-    case 128: e = launch_conv_rows<128>(p, n_rows, s); break;
-    default: e = launch_conv_rows<256>(p, n_rows, s); break;
-  }
+  const cudaError_t e = launch_conv_cols(p, n_rows, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (want_dead) {
     const int vec = cout % 8 == 0 && aligned16(res) && aligned16(out);
@@ -1348,34 +1311,40 @@ extern "C" int tiled_conv3d_prefolded_launch(
   cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
   compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(tl, g, occ, 0, n_rows, rows, count, 0);
   auto* ob = static_cast<__nv_bfloat16*>(out);
-  const ConvRows p{static_cast<const __nv_bfloat16*>(x), cf, cpad, k, 1, g,
+  const ConvRows p{static_cast<const __nv_bfloat16*>(x), cf, cpad, k, 1, 0, g, g,
                    static_cast<const __nv_bfloat16*>(wt), cout, tl, rows, count, scale, bias,
                    occ, nullptr, 0, 0, nullptr, nullptr, nullptr, relu,
                    cf % 8 == 0 && aligned16(x), 0, cout % 8 == 0 && aligned16(out), ob,
                    nullptr, 1, n_rows, 2 * sm_count()};
-  cudaError_t e;
-  switch (block_cols(cout)) {
-    case 32: e = launch_conv_rows<32>(p, n_rows, s); break;
-    case 64: e = launch_conv_rows<64>(p, n_rows, s); break;
-    case 96: e = launch_conv_rows<96>(p, n_rows, s); break;
-    case 128: e = launch_conv_rows<128>(p, n_rows, s); break;
-    default: e = launch_conv_rows<256>(p, n_rows, s); break;
-  }
+  const cudaError_t e = launch_conv_cols(p, n_rows, s);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// x: fine grid (xm, ym, zm); out: coarse grid (cxm, cym, czm); w (8, cin, cout)
+// x: fine grid (xm, ym, zm); out: coarse grid (cxm, cym, czm), the caller's
+// zeros outside the occupied listed cells; tiles list COARSE tiles, n_rows
+// their cells; wt: (cout, 8, cpad) K-major, taps d = dx + 2 dy + 4 dz, cpad
+// = cin rounded up to 32 with zero rows; occ: the coarse occupancy or null
+// (every listed cell live); rows: int32 scratch of n_rows + 2; part:
+// float32 scratch of s_max * n_rows * cout for up to s_max K splits
 extern "C" int tiled_down2_launch(
-    const void* x, int cin, int xm, int ym, int zm, const void* w, int cout,
+    const void* x, int cin, int xm, int ym, int zm, const void* wt, int cpad, int cout,
     const int* tiles, int n_rows, int tx, int ty, int tz, int cxm, int cym, int czm,
-    const float* scale, const float* bias, const float* occ, int relu, void* out,
-    void* stream) {
+    const float* scale, const float* bias, const float* occ, int relu, int* rows, void* out,
+    float* part, int s_max, void* stream) {
+  if (n_rows <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Grid gi{xm, ym, zm}, go{cxm, cym, czm};
   const Tiles tl{tiles, n_rows, tx, ty, tz};
-  if (n_rows > 0)
-    launch_tc<DOWN>(x, cin, gi, w, 2, cout, tl, n_rows, go, scale, bias, occ, cout, 0, relu,
-                    out, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  int* count = rows + n_rows;
+  cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
+  compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(tl, go, occ, 0, n_rows, rows, count, 0);
+  const ConvRows p{static_cast<const __nv_bfloat16*>(x), cin, cpad, 2, 0, 1, gi, go,
+                   static_cast<const __nv_bfloat16*>(wt), cout, tl, rows, count, scale, bias,
+                   occ, nullptr, 0, 0, nullptr, nullptr, nullptr, relu,
+                   cin % 8 == 0 && aligned16(x), 0, cout % 8 == 0 && aligned16(out),
+                   static_cast<__nv_bfloat16*>(out), part, s_max, n_rows, 2 * sm_count()};
+  const cudaError_t e = launch_conv_cols(p, n_rows, s);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // x: coarse grid (cxm, cym, czm); out and skip: fine grid (xm, ym, zm);
@@ -1428,9 +1397,14 @@ extern "C" int tiled_up2_into_launch(
     int relu, void* dest, void* stream) {
   const Grid gi{cxm, cym, czm}, go{xm, ym, zm};
   const Tiles tl{tiles, n_rows, tx, ty, tz};
-  if (n_rows > 0)
-    launch_tc<UPI>(x, cin, gi, w, 2, cout, tl, n_rows / 8, go, scale, bias, occ, ctot,
-                   skip_c, relu, dest, static_cast<cudaStream_t>(stream));
+  const int n_par = n_rows / 8;
+  if (n_par > 0)
+    tc_kernel<<<dim3((n_par + TM - 1) / TM, (8 * cout + TN - 1) / TN), TT, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(x), cin, gi, static_cast<const __nv_bfloat16*>(w),
+        cout, tl, n_par, go, scale, bias, occ, ctot, skip_c, relu,
+        cin % 8 == 0 && aligned16(x), cout % 8 == 0 && aligned16(w),
+        static_cast<__nv_bfloat16*>(dest));
   return static_cast<int>(cudaGetLastError());
 }
 

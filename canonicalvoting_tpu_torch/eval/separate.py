@@ -16,8 +16,9 @@ on its dense path (``backbone="dense"``, tiled kernels, ``stem_impl=
 
 The categories' weights are stacked on a leading axis (``stack_state_dicts``)
 and each category's pass is ``torch.func.functional_call`` of one module
-with its slice; the prefolded stem's folded weights are built once per
-category (or group) when the weights are installed. With ``group_size`` N >
+with its slice; the prefolded stem's folded weights and the four down
+convs' K-major weights are built once per category (or group) when the
+weights are installed. With ``group_size`` N >
 1 the categories are packed N at a time into block-diagonal grouped nets
 (``eval/grouped.py``). The gather-form sparse backbone
 (``backbone="sparse"``) is not ported yet.
@@ -44,7 +45,7 @@ from canonicalvoting_tpu_torch.eval.pipeline import (
     SceneArgs, prepare_scene_args, slice_separate_heads)
 from canonicalvoting_tpu_torch.metrics.ap import nms as nms_host
 from canonicalvoting_tpu_torch.models.dense_unet import (
-    DenseMinkUNet, shared_scene_grids)
+    DOWN_KERNELS, DenseMinkUNet, shared_scene_grids)
 from canonicalvoting_tpu_torch.ops.hough_voting import (
     check_hv_method, clipped_grid_dims, compute_corners, hough_voting,
     hough_voting_obj, vote_stats_at_cell)
@@ -90,7 +91,8 @@ class SeparateDetectionPipeline:
     # category's k=5 stem runs over it; "tiled": each runs the 3-channel grid
     stem_impl: str = "prefold"
     # True: objectness splats and rot/scale sampled at the peeled cells;
-    # False: 6-channel splats and the dense rot/scale grids
+    # False: one 6-channel splat of the categories and the dense rot/scale
+    # grids
     lazy_rot_scale: bool = True
     # the objectness splats' route, as DetectionPipeline.hv_method
     hv_method: str = "auto"
@@ -124,6 +126,7 @@ class SeparateDetectionPipeline:
         self.net = net.to(self.device).eval().requires_grad_(False)
         self.stacked = None
         self.stem_wt = None  # per group: the prefolded stem's folded weights
+        self.down_wt = None  # per group: the four downs' K-major weights
         if self.state_dicts is not None:
             self.set_state_dicts(self.state_dicts)
             self.state_dicts = None
@@ -144,6 +147,8 @@ class SeparateDetectionPipeline:
                         for k, v in stack_state_dicts(groups).items()}
         self.stem_wt = None if self.stem_impl != "prefold" else [
             self.net.fold_stem(w) for w in self.stacked["conv0p1s1.kernel"]]
+        self.down_wt = [self.net.fold_downs(ws) for ws in
+                        zip(*(self.stacked[k] for k in DOWN_KERNELS))]
 
     # ------------------------------------------------------------------
     def prepare_quantized(self, coords: np.ndarray,
@@ -177,7 +182,7 @@ class SeparateDetectionPipeline:
         n_groups = next(iter(self.stacked.values())).shape[0]
         heads = []
         for g in range(n_groups):
-            kw = {"shared": shared}
+            kw = {"shared": shared, "down_wt": self.down_wt[g]}
             if self.stem_wt is not None:
                 kw["stem_wt"] = self.stem_wt[g]
             rows = functional_call(
@@ -190,8 +195,9 @@ class SeparateDetectionPipeline:
     @torch.no_grad()
     def vote(self, heads: torch.Tensor, args: SceneArgs) -> Dict[str, object]:
         """Head slice -> the categories' vote grids, stacked: the objectness
-        grids of one splat over every category (lazy), or one 6-channel
-        splat per category for the objectness, rotation and scale grids."""
+        grids of one splat over every category (lazy), or the objectness,
+        rotation and scale grids of one 6-channel splat over every
+        category."""
         xyz, scale, prob = slice_separate_heads(heads)
         if self.log_scale:
             scale = torch.exp(scale)
@@ -202,9 +208,7 @@ class SeparateDetectionPipeline:
             grids = (hough_voting_obj(args.coords_w, xyz, scale, prob,
                                       method=self.hv_method, **kw), None, None)
         else:
-            grids = tuple(torch.stack(g) for g in zip(
-                *[hough_voting(args.coords_w, xyz[c], scale[c], prob[c], **kw)
-                  for c in range(len(heads))]))
+            grids = hough_voting(args.coords_w, xyz, scale, prob, **kw)
         return {"grids": grids, "xyz": xyz, "scale": scale, "prob": prob,
                 "corners": corners}
 

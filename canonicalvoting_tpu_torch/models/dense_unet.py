@@ -11,7 +11,9 @@ The k=5 stem runs through ``tiled_conv3d`` over the 3-channel grid
 grid's (dy, dz) fold (``stem_impl="prefold"``, the separate evaluator's
 default), its kernel folded K-major by the caller once per set of weights
 (:meth:`DenseMinkUNet.fold_stem`, passed as ``forward(..., stem_wt=)``) or
-else by the wrapper on each call. The
+else by the wrapper on each call; the four down convs' kernels are laid out
+K-major the same way (:meth:`DenseMinkUNet.fold_downs`, ``forward(...,
+down_wt=)``). The
 decoder's up-convs into L0 and L1 run ``tiled_up2`` with the
 skip concat fused in (``up_impl="concat"``), or ``tiled_up2_into`` into a
 grid that holds the skip (``up_impl="into"``, the JAX package's
@@ -40,12 +42,15 @@ from torch import nn
 from canonicalvoting_tpu_torch.data.dense_prep import (
     CONV_KEY_OFF, MX, MY, MZ, STEM_KEY, TRANS_KEYS)
 from canonicalvoting_tpu_torch.ops.tiled_conv import (
-    UP_INTO_MAX_CHANNELS, fold_dydz, prefold_stem_weights, tiled_conv3d,
-    tiled_conv3d_prefolded, tiled_down2, tiled_up2, tiled_up2_into)
+    UP_INTO_MAX_CHANNELS, down2_weights, fold_dydz, prefold_stem_weights,
+    tiled_conv3d, tiled_conv3d_prefolded, tiled_down2, tiled_up2,
+    tiled_up2_into)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 STEM_IMPLS = ("tiled", "prefold")
 UP_IMPLS = ("concat", "into")
+# the four down convs' kernels, into L1 to L4
+DOWN_KERNELS = tuple(f"conv{i + 1}p{1 << i}s2.kernel" for i in range(4))
 # the levels whose up-conv runs tiled_up2_into on up_impl="into" (the JAX
 # package's v2_keys, dense_unet.py:510)
 INTO_LEVELS = (0, 1)
@@ -192,7 +197,8 @@ class DenseMinkUNet(nn.Module):
     "prefold", ``stem_wt`` takes the stem's folded weights
     (:meth:`fold_stem`) where the caller keeps them (the separate
     evaluator, once per category); else the wrapper folds the stem kernel
-    on each call.
+    on each call. ``down_wt`` takes the four down convs' K-major weights
+    (:meth:`fold_downs`) the same way.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -261,6 +267,13 @@ class DenseMinkUNet(nn.Module):
                                     dtype=_DTYPES[self.compute_dtype],
                                     device=w.device)
 
+    def fold_downs(self, kernels: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The four down convs' (8, Cin, Cout) kernels (``DOWN_KERNELS``'
+        order) laid out K-major for ``tiled_down2`` (``down2_weights``), in
+        the compute dtype on each kernel's device."""
+        return [down2_weights(w.detach(), dtype=_DTYPES[self.compute_dtype],
+                              device=w.device) for w in kernels]
+
     def _blocks(self, name, n, x, occ, tiles, ts, in_perm=None):
         for j in range(n):
             x = getattr(self, f"{name}_{j}")(x, occ, tiles, ts,
@@ -273,7 +286,9 @@ class DenseMinkUNet(nn.Module):
                 tiles: Dict[int, torch.Tensor],
                 tile_shapes: Dict[int, Tuple[int, int, int]],
                 shared: Optional[Dict[str, object]] = None,
-                stem_wt: Optional[torch.Tensor] = None) -> torch.Tensor:
+                stem_wt: Optional[torch.Tensor] = None,
+                down_wt: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
         dt = _DTYPES[self.compute_dtype]
         if shared is None:
             shared = shared_scene_grids(
@@ -303,7 +318,8 @@ class DenseMinkUNet(nn.Module):
             a, b = getattr(self, f"bn{i + 1}").affine()
             x = tiled_down2(x, getattr(self, f"conv{i + 1}p{1 << i}s2").kernel,
                             tiles[key], tile_shape=tile_shapes[key], scale=a,
-                            bias=b, occ=occ[i + 1], relu_out=True)
+                            bias=b, occ=occ[i + 1], relu_out=True,
+                            wt=None if down_wt is None else down_wt[i])
             ck = conv_key(i + 1)
             x = self._blocks(f"block{i + 1}", self.layers[i], x, occ[i + 1],
                              tiles[ck], tile_shapes[ck])

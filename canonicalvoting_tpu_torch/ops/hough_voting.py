@@ -158,10 +158,14 @@ def hough_voting(points: torch.Tensor, xyz: torch.Tensor, scale: torch.Tensor,
     gz, 3)): the 6-channel splat's raw sums, rot and scale normalized by
     ``grid_obj + 1e-7`` as the JAX package does outside its kernel
     (upstream ``hv_cuda_kernel.cu:100-119``). Corners and dims as
-    :func:`hough_voting_obj`. There is no windowed route here: the JAX
-    package's ``hough_voting`` computes "pallas_windowed" through its XLA
-    scatter (``ops/hough_voting.py:173-186``), the same function as this
-    6-channel splat, so the pipelines' non-lazy tails ignore the method."""
+    :func:`hough_voting_obj`. xyz (C, N, 3), scale (C, N, 3) and obj (C,
+    N) give the C categories' grids, each with a leading C axis, from one
+    splat launch (the JAX package's separate evaluator scans the
+    categories; each grid is the single call's). There is no windowed
+    route here: the JAX package's ``hough_voting`` computes
+    "pallas_windowed" through its XLA scatter
+    (``ops/hough_voting.py:173-186``), the same function as this 6-channel
+    splat, so the pipelines' non-lazy tails ignore the method."""
     if valid is not None:
         valid = valid.to(points.dtype)
     if corners is None:

@@ -2,10 +2,10 @@
 
 Counterpart of ``hv_splat_pallas`` in
 ``canonicalvoting_tpu/ops/pallas/hv_splat.py``: ``hv_splat`` is its
-``channels=1`` objectness grid (of one category, or of several in one
-launch: the separate evaluator's categories), ``hv_splat6`` its
-``channels=6`` raw sums ``[obj, obj*cos, obj*sin, obj*sx, obj*sy,
-obj*sz]``; ``hv_splat_windowed`` is ``hv_splat_windowed`` there,
+``channels=1`` objectness grid, ``hv_splat6`` its ``channels=6`` raw sums
+``[obj, obj*cos, obj*sin, obj*sx, obj*sy, obj*sz]``, each of one category
+or of several in one launch (the separate evaluator's categories);
+``hv_splat_windowed`` is ``hv_splat_windowed`` there,
 ``hv_splat``'s function over points sorted into (y plane, x bucket)
 windows. The kernels are in ``csrc/hv_splat.cu``; its header says what
 bounds them on the H100, and how they make the sums deterministic (64-bit
@@ -226,7 +226,7 @@ def _fixed_to_float(acc: torch.Tensor, out: torch.Tensor) -> None:
 def _splat(points, xyz, scale, obj, corner, dims, res, num_rots,
            grid_shape, valid, channels):
     if _route(points, xyz, scale, obj, corner, dims, valid,
-              categories=channels == 1) == "plain":
+              categories=True) == "plain":
         return hv_splat_plain(points, xyz, scale, obj, corner, dims, res,
                               num_rots=num_rots, grid_shape=grid_shape,
                               valid=valid, channels=channels)
@@ -268,7 +268,9 @@ def hv_splat6(points: torch.Tensor, xyz: torch.Tensor, scale: torch.Tensor,
               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Raw (gx, gy, gz, 6) float32 vote sums ``[obj, obj*cos, obj*sin,
     obj*sx, obj*sy, obj*sz]``, channel-last as the JAX package returns them;
-    arguments as :func:`hv_splat`, one category."""
+    arguments as :func:`hv_splat`. xyz (C, N, 3), scale (C, N, 3) and obj
+    (C, N) splat C categories over the same points in one launch: (C, gx,
+    gy, gz, 6), each grid exactly the single call's."""
     return _splat(points, xyz, scale, obj, corner, dims, res, num_rots,
                   grid_shape, valid, 6)
 

@@ -46,8 +46,9 @@ _ARGTYPES = {
     "tiled_conv3d_prefolded_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P,
                                       _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
                                       _P],
-    "tiled_down2_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    "tiled_down2_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I,
+                           _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
+                           _P],
     "tiled_up2_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
                          _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "tiled_up2_into_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I,
@@ -142,6 +143,18 @@ def _k_major(w: torch.Tensor, dtype: torch.dtype, device,
     return rows, cpad
 
 
+def _split_scratch(steps: int, n_rows: int, cout: int, extra: int, device):
+    """(s_max, part) of an occupied-row conv call: the most K splits the
+    kernel may take (at most one a K step) and their float32 scratch, with
+    ``extra`` more (n_rows, cout) slices (the fused 1x1's result); no
+    scratch with one split."""
+    s_max = max(1, min(MAX_SPLITS, steps,
+                       SPLIT_BYTES // max(1, 4 * n_rows * cout) - extra))
+    part = None if s_max == 1 else torch.empty(
+        (s_max + extra) * n_rows * cout, dtype=torch.float32, device=device)
+    return s_max, part
+
+
 def _check_tiles(tiles: torch.Tensor, x: torch.Tensor, dims, tile_shape) -> None:
     if tiles.dtype != torch.int32 or tiles.dim() != 2 or tiles.shape[1] != 3:
         raise ValueError("tiles must be an int32 (T, 3) tensor")
@@ -208,6 +221,15 @@ def prefold_stem_weights(w: torch.Tensor, k: int, *, dtype: torch.dtype,
     cf = folded_channels(w.shape[1], k)
     return _k_major(fold_stem_weights(w.to(device=device, dtype=dtype), k, cf),
                     dtype, device)[0]
+
+
+def down2_weights(w: torch.Tensor, *, dtype: torch.dtype,
+                  device) -> torch.Tensor:
+    """The down kernel's weights: the (8, Cin, Cout) kernel laid out K-major
+    in ``dtype`` on ``device``, (Cout, 8, Cpad) with Cpad = Cin rounded up
+    to K_CHUNK over zero rows. A caller builds it once per set of weights
+    and passes it to :func:`tiled_down2` as ``wt``."""
+    return _k_major(w, dtype, device)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -418,11 +440,8 @@ def tiled_conv3d(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
     sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
     n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
     rows = torch.empty(n_rows + 2, dtype=torch.int32, device=dev)
-    extra = int(rwt is not None)  # a slice for the fused 1x1's result
-    s_max = max(1, min(MAX_SPLITS, k ** 3 * cpad // K_CHUNK,
-                       SPLIT_BYTES // (4 * n_rows * cout) - extra))
-    part = None if s_max == 1 else torch.empty(
-        (s_max + extra) * n_rows * cout, dtype=torch.float32, device=dev)
+    s_max, part = _split_scratch(k ** 3 * cpad // K_CHUNK, n_rows, cout,
+                                 int(rwt is not None), dev)
     rc = _launcher("tiled_conv3d_launch")(
         x.data_ptr(), cin, *x.shape[:3], wt.data_ptr(), cpad, k, cout,
         tiles.data_ptr(), n_rows, *tile_shape, _ptr(sc), _ptr(bi), _ptr(oc),
@@ -493,32 +512,50 @@ tiled_conv3d_prefolded.launches = 0
 
 def tiled_down2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
                 tile_shape: Tuple[int, int, int], scale=None, bias=None,
-                occ=None, relu_out: bool = False) -> torch.Tensor:
+                occ=None, relu_out: bool = False,
+                wt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stride-2 k=2 conv ``out[o] = sum_d W[d] @ in[2o + d]`` (d = dx + 2dy
     + 4dz) over the listed COARSE tiles, then ``relu?(occ * (. * scale +
-    bias))``. x is the fine grid; returns the coarse grid."""
+    bias))``. x is the fine grid; returns the coarse grid. On the card the
+    occupied-row GEMM runs the live coarse cells only (every listed cell
+    without ``occ``); the others keep the output's zeros. ``wt`` is ``w``
+    laid out by :func:`down2_weights` in x's dtype on x's device, which a
+    caller builds once (else the kernel's route lays ``w`` out here, each
+    call); the plain version ignores it."""
     _check_grid(x, "x")
     if w.shape[:2] != (8, x.shape[3]):
         raise ValueError(f"weights {tuple(w.shape)} do not fit x {tuple(x.shape)}")
+    cout, cpad = w.shape[2], -(-x.shape[3] // K_CHUNK) * K_CHUNK
+    if wt is not None and (tuple(wt.shape) != (cout, 8, cpad)
+                           or wt.dtype != x.dtype or wt.device != x.device
+                           or not wt.is_contiguous()):
+        raise ValueError(f"wt {tuple(wt.shape)} {wt.dtype} on {wt.device} is "
+                         f"not the ({cout}, 8, {cpad}) layout in {x.dtype} on "
+                         f"{x.device}")
     X, Y, Z = _interior(x.shape)
     if X % 2 or Y % 2 or Z % 2:
         raise ValueError("the fine interior must have even dims")
     _check_tiles(tiles, x, (X // 2, Y // 2, Z // 2), tile_shape)
-    _check_occ(occ, (X // 2 + 2 * MX, Y // 2 + 2 * MY, Z // 2 + 2 * MZ))
+    cshape = (X // 2 + 2 * MX, Y // 2 + 2 * MY, Z // 2 + 2 * MZ)
+    _check_occ(occ, cshape)
     kw = dict(tile_shape=tile_shape, scale=scale, bias=bias, occ=occ,
               relu_out=relu_out)
     if _route(x) == "plain":
         return tiled_down2_plain(x, w, tiles, **kw)
+    _check_cells(x.shape)
     dev = x.device
-    cout = w.shape[2]
-    cshape = (X // 2 + 2 * MX, Y // 2 + 2 * MY, Z // 2 + 2 * MZ)
     out = torch.zeros(cshape + (cout,), dtype=x.dtype, device=dev)
-    wf, sc, bi, oc = _like(w, x), _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
-    cells = tile_shape[0] * tile_shape[1] * tile_shape[2]
+    if wt is None:
+        wt = down2_weights(w, dtype=x.dtype, device=dev)
+    sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
+    n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
+    rows = torch.empty(n_rows + 2, dtype=torch.int32, device=dev)
+    s_max, part = _split_scratch(8 * cpad // K_CHUNK, n_rows, cout, 0, dev)
     rc = _launcher("tiled_down2_launch")(
-        x.data_ptr(), x.shape[3], *x.shape[:3], wf.data_ptr(),
-        cout, tiles.data_ptr(), tiles.shape[0] * cells, *tile_shape, *cshape,
-        _ptr(sc), _ptr(bi), _ptr(oc), int(relu_out), out.data_ptr(), _stream())
+        x.data_ptr(), x.shape[3], *x.shape[:3], wt.data_ptr(), cpad, cout,
+        tiles.data_ptr(), n_rows, *tile_shape, *cshape, _ptr(sc), _ptr(bi),
+        _ptr(oc), int(relu_out), rows.data_ptr(), out.data_ptr(), _ptr(part),
+        s_max, _stream())
     check(rc, "tiled_down2")
     tiled_down2.launches += 1
     return out

@@ -63,6 +63,33 @@ def test_grids_match_jax_pallas_interpret(rng):
         np.testing.assert_allclose(g, w, atol=tol)
 
 
+def test_categories_in_one_call_match_single_calls_and_jax_xla(rng):
+    """hough_voting over C = 3 categories in one call (xyz, scale and obj
+    with a leading category axis: one 6-channel splat) equals the three
+    single calls, atol 1e-6 (the plain version sums each category alone,
+    in float64), and each category the JAX hough_voting on its XLA path at
+    test_grids_match_jax_xla's tolerance."""
+    points, xyz, scale, obj, valid = _scene(rng)
+    C = 3
+    xyz_c = np.stack([xyz * (1.0 + 0.2 * c) for c in range(C)])
+    scale_c = np.stack([scale * (1.0 - 0.2 * c) for c in range(C)])
+    obj_c = np.stack([obj * (rng.rand(len(obj)) < 0.7) for _ in range(C)])
+    kw = dict(res=0.05, num_rots=24, grid_shape=(32, 32, 32))
+    t = [torch.from_numpy(a.astype(np.float32))
+         for a in (points, xyz_c, scale_c, obj_c, valid)]
+    batched = [g.numpy() for g in thv.hough_voting(*t[:4], valid=t[4], **kw)]
+    assert hv_splat6.launches == 0
+    for c in range(C):
+        one = (points, xyz_c[c], scale_c[c], obj_c[c], valid)
+        single = _port(*[a.astype(np.float32) for a in one], **kw)
+        want = _jax(*one, method="xla", **kw)
+        for b, g, w in zip(batched, single, want):
+            assert b.shape == (C,) + g.shape
+            np.testing.assert_allclose(b[c], g, atol=1e-6, rtol=0)
+            np.testing.assert_allclose(b[c], w, atol=2e-5, rtol=1e-5)
+    assert batched[0].max() > 1.0 and np.abs(batched[1]).max() > 0.5
+
+
 def test_six_channel_splat_refuses_foreign_devices():
     z = torch.zeros(4, 3, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):

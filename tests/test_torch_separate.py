@@ -20,8 +20,10 @@ from canonicalvoting_tpu_torch.data.synthetic import (
     encode_separate_head_rows, make_scene, perfect_predictions)
 from canonicalvoting_tpu_torch.decode.peeling import PeelConfig
 from canonicalvoting_tpu_torch.eval.separate import SeparateDetectionPipeline
-from canonicalvoting_tpu_torch.models.dense_unet import DenseMinkUNet
-from canonicalvoting_tpu_torch.ops.tiled_conv import prefold_stem_weights
+from canonicalvoting_tpu_torch.models.dense_unet import (
+    DOWN_KERNELS, DenseMinkUNet)
+from canonicalvoting_tpu_torch.ops.tiled_conv import (
+    down2_weights, prefold_stem_weights)
 from canonicalvoting_tpu_torch.ops.voxelize import sparse_quantize
 from canonicalvoting_tpu_torch.utils.weights import jax_state_dict
 
@@ -141,6 +143,20 @@ def test_each_category_stem_is_folded_once(setup):
         torch.testing.assert_close(wt, want, rtol=0, atol=0)
 
 
+def test_each_category_down_is_laid_out_once(setup):
+    """The four down convs' weights are laid out K-major once per category
+    when the weights are installed: each is down2_weights of that
+    category's kernel, in DOWN_KERNELS' order."""
+    state_dicts, _, pipe, _, _, _, _ = setup
+    assert len(pipe.down_wt) == len(CATS)
+    for sd, wts in zip(state_dicts, pipe.down_wt):
+        assert len(wts) == len(DOWN_KERNELS)
+        for key, wt in zip(DOWN_KERNELS, wts):
+            want = down2_weights(torch.as_tensor(sd[key]), dtype=torch.float32,
+                                 device="cpu")
+            torch.testing.assert_close(wt, want, rtol=0, atol=0)
+
+
 def test_grouped_equals_single(setup):
     """group_size=2 (three categories: groups [0, 1] and [2, 2]) gives the
     per-category nets' head rows and detections."""
@@ -155,7 +171,7 @@ def test_grouped_equals_single(setup):
 
 
 def test_nonlazy_equals_lazy(setup):
-    """lazy_rot_scale=False (one hough_voting per category, stacked, and the
+    """lazy_rot_scale=False (one hough_voting over the categories, and the
     batched peel on the rotation and scale grids) finds the lazy pipeline's
     boxes: same counts, boxes within one vote cell."""
     state_dicts, _, pipe, args, planted, _, _ = setup
@@ -171,6 +187,36 @@ def test_nonlazy_equals_lazy(setup):
     for c in range(len(CATS)):
         np.testing.assert_allclose(out["boxes"][c, :n[c]].numpy(),
                                    lazy["boxes"][c, :n[c]].numpy(), atol=RES)
+
+
+def test_nonlazy_tail_splats_the_categories_once(setup, monkeypatch):
+    """The non-lazy tail makes one 6-channel splat over the categories; its
+    grids equal the per-category calls stacked, bitwise (each category's
+    sums are its own call's), and the batched peel finds the same boxes on
+    both."""
+    import canonicalvoting_tpu_torch.ops.hough_voting as thv
+
+    state_dicts, _, _, args, planted, _, _ = setup
+    full = _pipe(state_dicts=state_dicts, lazy_rot_scale=False)
+    calls, real = [], thv.hv_splat6
+    monkeypatch.setattr(thv, "hv_splat6", lambda *a, **k: calls.append(
+        tuple(a[3].shape)) or real(*a, **k))
+    votes = full.vote(torch.as_tensor(planted), args)
+    assert calls == [(len(CATS), args.valid.shape[0])]
+    kw = dict(res=RES, num_rots=ROTS, grid_shape=args.grid_shape,
+              corners=votes["corners"], valid=args.valid)
+    singles = [thv.hough_voting(args.coords_w, votes["xyz"][c],
+                                votes["scale"][c], votes["prob"][c], **kw)
+               for c in range(len(CATS))]
+    stacked = tuple(torch.stack(g) for g in zip(*singles))
+    for got, want in zip(votes["grids"], stacked):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    out = full.peel_votes(votes, args)
+    before = full.peel_votes(dict(votes, grids=stacked), args)
+    assert out.keys() == before.keys()
+    for k in out:
+        torch.testing.assert_close(out[k], before[k], rtol=0, atol=0)
+    assert out["n_boxes"][0] >= 1 and out["n_boxes"][1] >= 1
 
 
 def test_variants_give_the_default_detections(setup, monkeypatch):

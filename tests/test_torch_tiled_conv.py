@@ -6,10 +6,13 @@ inputs and differ only in summation order over at most 125 taps x 8
 channels of O(1) values (a few ulp of the O(10) outputs).
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from canonicalvoting_tpu.ops.pallas import tiled_conv as jtc
 
@@ -105,7 +108,13 @@ def test_tiled_conv3d_matches_jax(rng, case):
     assert np.abs(got.numpy()).max() > 0.1
 
 
-def test_tiled_down2_matches_jax(rng):
+@functools.lru_cache(maxsize=None)
+def _down_case(masked=True):
+    """The down case of test_tiled_down2_matches_jax (from the ``rng``
+    fixture's seed), and the JAX kernel's output in interpret mode with the
+    coarse occupancy mask, or with none (computed once for the tests
+    below)."""
+    rng = np.random.RandomState(0)
     fdims, cin, cout = (16, 16, 32), 8, 8
     cdims = tuple(d // 2 for d in fdims)
     x, _, cells = _sparse_grid(rng, fdims, cin, 200)
@@ -117,16 +126,72 @@ def test_tiled_down2_matches_jax(rng):
     ts, group = (4, 4, 8), 2
     tiles = _tiles(coarse, cdims, ts, group)
     occ_m = _margin(occ)
+    xm = _margin(x)
     want = jtc.tiled_down2(
-        _lanes(_margin(x)), jnp.asarray(w), jnp.asarray(tiles),
+        _lanes(xm), jnp.asarray(w), jnp.asarray(tiles),
         scale=jnp.asarray(scale), bias=jnp.asarray(bias),
-        occ=jtc.pack_occ(jnp.asarray(occ_m), jnp.asarray(tiles), ts),
+        occ=(jtc.pack_occ(jnp.asarray(occ_m), jnp.asarray(tiles), ts)
+             if masked else None),
         relu_out=True, tile_shape=ts, group=group, interpret=True)
-    got = ttc.tiled_down2(_t(_margin(x)), _t(w), _t(tiles), tile_shape=ts,
-                          scale=_t(scale), bias=_t(bias), occ=_t(occ_m),
-                          relu_out=True)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want)[..., :cout], **TOL)
+    args = [_t(a) for a in (xm, w, tiles, scale, bias)]
+    return args, _t(occ_m) if masked else None, ts, np.asarray(want)[..., :cout]
+
+
+def test_tiled_down2_matches_jax():
+    (x, w, tiles, scale, bias), occ, ts, want = _down_case()
+    got = ttc.tiled_down2(x, w, tiles, tile_shape=ts, scale=scale, bias=bias,
+                          occ=occ, relu_out=True)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert np.abs(got.numpy()).max() > 0.1
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["occ", "no_occ"])
+def test_k_major_down_weights_row_gemm_matches_jax_interpret(masked):
+    """The down kernel's operand layout: down2_weights' (Cout, 8, Cpad) rows
+    against each live coarse row's 8 stride-2 taps of the fine grid (x
+    fastest from the fine cell 2o), each zero-padded to Cpad and
+    concatenated (one row GEMM, as the occupied-row kernel walks its K
+    steps), then the epilogue (affine, mask, ReLU) at the live rows: the
+    occupied listed cells, or every listed cell without occ. Equal to the
+    JAX kernel in interpret mode and to tiled_down2_plain, atol 1e-5 in
+    float32."""
+    (x, w, tiles, scale, bias), occ, ts, want = _down_case(masked)
+    cin, cout = w.shape[1], w.shape[2]
+    wt = ttc.down2_weights(w, dtype=torch.float32, device="cpu")
+    cpad = wt.shape[2]
+    assert wt.shape == (cout, 8, cpad) and cpad % ttc.K_CHUNK == 0
+    assert torch.all(wt[..., cin:] == 0)
+    cshape = tuple((n - 2 * m) // 2 + 2 * m for n, m in zip(x.shape, (MX, MY, MZ)))
+    cells = ttc._row_cells(tiles, ts)
+    if occ is not None:
+        cells = cells[occ.reshape(-1)[ttc._flat(cells, cshape)] > 0]
+    rows = F.pad(x.reshape(-1, cin), (0, cpad - cin))
+    taps = [torch.tensor([d & 1, (d >> 1) & 1, d >> 2]) for d in range(8)]
+    a = torch.cat([rows[ttc._flat(2 * cells + t, x.shape)] for t in taps], 1)
+    acc = a @ wt.reshape(cout, -1).T
+    out = torch.zeros(cshape + (cout,))
+    out.view(-1, cout)[ttc._flat(cells, cshape)] = torch.clamp_min(
+        acc * scale + bias, 0.0)
+    np.testing.assert_allclose(out.numpy(), want, atol=1e-5)
+    plain = ttc.tiled_down2_plain(x, w, tiles, tile_shape=ts, scale=scale,
+                                  bias=bias, occ=occ, relu_out=True)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=1e-5)
+    assert np.abs(out.numpy()).max() > 0.1
+
+
+def test_down_wrapper_refuses_a_foreign_layout():
+    """A ``wt`` that is not down2_weights' (Cout, 8, Cpad) layout of the
+    kernel in x's dtype on x's device is refused before any route runs; the
+    right one gives the plain version's output (the CPU route ignores it)."""
+    (x, w, tiles, scale, bias), occ, ts, want = _down_case()
+    wt = ttc.down2_weights(w, dtype=x.dtype, device=x.device)
+    kw = dict(tile_shape=ts, scale=scale, bias=bias, occ=occ, relu_out=True)
+    for bad in (wt[:, :, :8], wt[:4], wt.to(torch.bfloat16), wt.to("meta"),
+                wt.transpose(0, 1).contiguous().transpose(0, 1)):
+        with pytest.raises(ValueError, match="wt"):
+            ttc.tiled_down2(x, w, tiles, wt=bad, **kw)
+    got = ttc.tiled_down2(x, w, tiles, wt=wt, **kw)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 def _check_up2(rng, masked_skip):

@@ -1,5 +1,6 @@
-"""Registers, static shared memory and spills of every kernel in a CUDA
-source of the port, from ``nvcc -Xptxas -v`` with the port's own flags.
+"""Registers, static shared memory, stack frame and spills of every kernel
+in a CUDA source of the port, from ``nvcc -Xptxas -v`` with the port's own
+flags.
 
     python3 tools/ptxas_usage.py [csrc name, default tiled_conv]
 
@@ -47,7 +48,8 @@ def main() -> int:
             cur = {"kernel": m.group(1)}
             rows.append(cur)
         elif cur is not None:
-            for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+            for key, pat in (("stack_frame", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
                              ("spill_loads", r"(\d+) bytes spill loads"),
                              ("registers", r"Used (\d+) registers"),
                              ("static_smem", r"(\d+) bytes smem")):

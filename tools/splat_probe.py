@@ -1,7 +1,8 @@
-"""Measure the objectness vote splat's pieces on one GPU, for the port in the
-current directory.
+"""Measure the vote splat's pieces on one GPU, for the port in the current
+directory: the objectness splat (``hv_splat``), or with ``--channels 6`` the
+6-channel splat of the non-lazy tails (``hv_splat6``).
 
-    cd <checkout root> && python3 <path>/tools/splat_probe.py [--reps N]
+    cd <checkout root> && python3 <path>/tools/splat_probe.py [--reps N] [--channels 6] [--heads FILE]
 
 It imports ``canonicalvoting_tpu_torch`` from the working directory and the
 workload and timers from the ``chip_smoke.py`` of the checkout that holds
@@ -9,13 +10,16 @@ the script, so one copy of the script measures two checkouts in turn (a
 parent commit unpacked beside the change) on the same workload. The
 workload is ``chip_smoke.py``'s first scene, with two sets of head rows:
 
-- ``planted``: the joint path's planted head rows (one objectness grid)
-  and the separate path's planted rows of its nine categories. Their
+- ``planted``: the joint path's planted head rows (one grid) and the
+  separate path's planted rows of its nine categories. Their
   background points have an offset of exactly 0, so all 120 votes of such
   a point fall in one cell;
 - ``backbone``: the head rows of the joint model and of the nine
   category models themselves (random weights from their seeds), whose
-  offsets are not zero.
+  offsets are not zero. Two checkouts whose backbones round differently
+  give different rows; with ``--heads FILE`` the rows are read from FILE
+  where it exists and written to it otherwise, so that a second checkout
+  splats the first one's rows and the grids' SHA-1 compare.
 
 Prints one JSON line with, for each set and path (``joint``, and
 ``separate``, whose nine categories splat over the separate path's own
@@ -27,7 +31,8 @@ points and grid):
 - ``host_ms``: the host's time to issue one call, no sync between calls
   (a wrapper that syncs inside waits for the card here);
 - ``device_ms``: device time by kernel name over one call, from
-  ``torch.profiler`` ("not measured" when it reports none);
+  ``torch.profiler`` ("not measured" when it reports none): the vote
+  kernel, the scratch's zero fill and the fixed-point conversion apart;
 - ``votes``, ``in_range``: votes and the votes inside the grid;
 - ``small_offset_share``: the valid points whose offset is under one cell
   in x and z (their votes at every rotation stay in or next to one cell);
@@ -36,11 +41,12 @@ points and grid):
   floor cell (the kernel's whole-warp path), and the share of the
   in-range votes in them;
 - ``atomics``: the 64-bit atomics that three vote designs issue for these
-  inputs: ``per_vote`` one a corner of every in-range vote (one thread a
-  vote, no grouping), and ``points_fastest`` / ``rotations_fastest`` one a
-  corner of each group of a warp's in-range votes that share a floor cell,
-  with the threads' order running points or rotations fastest, sums of
-  zero skipped;
+  inputs: ``per_vote`` one a corner (and channel) of every in-range vote
+  (one thread a vote, no grouping), and ``points_fastest`` /
+  ``rotations_fastest`` one a corner and channel of each group of a warp's
+  in-range votes that share a floor cell, with the threads' order running
+  points or rotations fastest, the group's exact fixed-point sums of zero
+  skipped;
 - ``sha1``: of each grid's bytes, to compare checkouts bit for bit.
 """
 
@@ -86,10 +92,12 @@ def device_ms(fn):
 
 
 def atomics(points, xyz, scale, obj, corner, dims, res, num_rots, valid,
-            grid_shape):
+            grid_shape, channels=1):
     """Counts of one category's splat, the votes placed as the plain version
     places them: votes, in-range votes, valid points with an offset under a
-    cell, whole-warp groups and {design: atomics}."""
+    cell, whole-warp groups and {design: atomics}. A group's atomics are
+    those of its corners and channels whose sum of 64-bit fixed-point
+    weights (``round(w * 2^32)``, the kernels' conversion) is not zero."""
     import torch
     import torch.nn.functional as F
 
@@ -117,18 +125,31 @@ def atomics(points, xyz, scale, obj, corner, dims, res, num_rots, valid,
     warps = {"points_fastest": (rot * n + pt) // 32,
              "rotations_fastest": (pt * num_rots + rot) // 32}
     ob = (obj * valid)[None, :]
+    # the channels' factors: [1] or [1, cos, sin, sx, sy, sz]
+    factors = [None] if channels == 1 else \
+        [None, c, s] + [scale[None, :, a] for a in range(3)]
     cells = gx * gy * gz
-    out = {"per_vote": 8 * int(ok.sum())}
-    for name in warps:
+    out = {"per_vote": 8 * len(factors) * int(ok.sum())}
+    groups = {}
+    for name, warp in warps.items():
         out[name] = 0
+        groups[name] = torch.unique(warp[ok] * cells + key[ok],
+                                    return_inverse=True)[1]
     for b in range(8):
         bits = ((b >> 2) & 1, (b >> 1) & 1, b & 1)
-        w = ob
+        w = None  # the kernels' order: ((wx * wy) * wz) * obj
         for a, bit in enumerate(bits):
-            w = w * (w1[..., a] if bit else 1.0 - w1[..., a])
-        live = ok & (torch.round(w * 2.0 ** 32) != 0)
-        for name, warp in warps.items():
-            out[name] += int(torch.unique(warp[live] * cells + key[live]).numel())
+            wa = w1[..., a] if bit else 1.0 - w1[..., a]
+            w = wa if w is None else w * wa
+        w = w * ob
+        for f in factors:
+            wf = (w if f is None else w * f)[ok]
+            fixed = torch.round(wf * 2.0 ** 32).long()
+            for name, inv in groups.items():
+                sums = torch.zeros(int(inv.max()) + 1 if inv.numel() else 0,
+                                   dtype=torch.int64, device=points.device)
+                sums.scatter_add_(0, inv, fixed)
+                out[name] += int((sums != 0).sum())
     # the kernel's warps, rotations fastest: lanes past the last vote are out
     pad = (-n * num_rots) % 32
     ok_w = F.pad(ok.T.reshape(-1), (0, pad)).reshape(-1, 32)
@@ -162,7 +183,11 @@ def main() -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--reps", type=int, default=10)
-    reps = parser.parse_args().reps
+    parser.add_argument("--channels", type=int, choices=(1, 6), default=1)
+    parser.add_argument("--heads", help="the backbone head rows' file: read "
+                        "where it exists, else written")
+    opts = parser.parse_args()
+    reps, channels = opts.reps, opts.channels
     if not torch.cuda.is_available():
         print("splat_probe: no CUDA device", file=sys.stderr)
         return 2
@@ -190,13 +215,14 @@ def main() -> int:
         dims = clipped_grid_dims(corners, cs.RES, a.grid_shape)
         kw = dict(num_rots=cs.NUM_ROTS, grid_shape=a.grid_shape, valid=a.valid)
 
+        splat = hs.hv_splat if channels == 1 else hs.hv_splat6
+
         def one(x, s, o):
-            return hs.hv_splat(a.coords_w, x, s, o, corners[0], dims, cs.RES,
-                               **kw)
+            return splat(a.coords_w, x, s, o, corners[0], dims, cs.RES, **kw)
 
         def counts(x, s, o):
             return atomics(a.coords_w, x, s, o, corners[0], dims, cs.RES,
-                           cs.NUM_ROTS, a.valid, a.grid_shape)
+                           cs.NUM_ROTS, a.valid, a.grid_shape, channels)
         return one, counts
 
     def joint(heads):
@@ -237,14 +263,21 @@ def main() -> int:
                   ["nvidia-smi", "--query-gpu=name,power.limit",
                    "--format=csv,noheader"], capture_output=True, text=True,
                   timeout=60).stdout.strip(),
-              "grid_shape": list(args.grid_shape), "points": int(args.valid.shape[0])}
+              "channels": channels, "grid_shape": list(args.grid_shape),
+              "points": int(args.valid.shape[0])}
     dev = args.coords_w.device
     report["planted"] = {
         "joint": joint(cs.planted_rows(scene, args)),
         "separate": separate(torch.as_tensor(cs.separate_rows(scene, sargs, C),
                                              device=dev))}
-    report["backbone"] = {"joint": joint(pipe.backbone(args)),
-                          "separate": separate(sep.backbones(sargs))}
+    if opts.heads and os.path.exists(opts.heads):
+        heads = {k: v.to(dev) for k, v in torch.load(opts.heads).items()}
+    else:
+        heads = {"joint": pipe.backbone(args), "separate": sep.backbones(sargs)}
+        if opts.heads:
+            torch.save({k: v.cpu() for k, v in heads.items()}, opts.heads)
+    report["backbone"] = {"joint": joint(heads["joint"]),
+                          "separate": separate(heads["separate"])}
     print(json.dumps(report), flush=True)
     return 0
 
