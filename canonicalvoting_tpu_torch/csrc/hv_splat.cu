@@ -3,13 +3,13 @@
 // Replaces the Pallas TPU kernels hv_splat_pallas of
 // canonicalvoting_tpu/ops/pallas/hv_splat.py (_kernel), with channels = 1 and
 // channels = 6, and hv_splat_windowed (_kernel_windowed), the channels = 1
-// function over per-x-bucket windows (below): for each point and each of num_rots yaw angles, rotate the
-// scaled LCC offset, drop votes that fall outside [0, dims - 1) on any axis,
-// and splat trilinearly onto the 8 surrounding cells of a channel-last
-// (gx, gy, gz, CH) float32 grid. With w the corner weight times obj * valid,
-// channel 1 adds w (the objectness grid), channel 6 adds
-// [w, w cos, w sin, w sx, w sy, w sz] (the rotation and scale votes that
-// hough_voting normalizes by the objectness sum).
+// function through per-x-bucket windows (below): for each point and each of
+// num_rots yaw angles, rotate the scaled LCC offset, drop votes that fall
+// outside [0, dims - 1) on any axis, and splat trilinearly onto the 8
+// surrounding cells of a channel-last (gx, gy, gz, CH) float32 grid. With w
+// the corner weight times obj * valid, channel 1 adds w (the objectness
+// grid), channel 6 adds [w, w cos, w sin, w sx, w sy, w sz] (the rotation
+// and scale votes that hough_voting normalizes by the objectness sum).
 //
 // Sums are deterministic: each corner weight is converted to a 64-bit fixed
 // point number with 32 fractional bits and added with an integer atomicAdd.
@@ -69,6 +69,22 @@
 // 64-bit scratch is 8 bytes a cell, channel and category (302 MB for six
 // channels of a 256 x 96 x 256 grid, 2.7 GB for nine categories); its fill
 // and the conversion are outside the vote kernels.
+//
+// windowed_vote_kernel (hv_splat_windowed) is obj_vote_kernel with the JAX
+// windowed kernel's rule as a mask: a corner outside its point's x window
+// (x_window: the point's x bucket padded by x_pad cells, or the whole width
+// for the tail of large radii) weighs 0. The TPU kernel sorts the points
+// into (y plane, x bucket) segments so that each segment's votes fit a
+// VMEM canvas; the card needs no canvas, so nothing is sorted: each vote is
+// placed once, one thread a vote, grouped by floor cell as above, and the
+// window is worked out in registers from the point's own rows (no key
+// array, no host work beyond obj_vote_kernel's). With the keys right no
+// corner leaves its window, so the grid equals hv_splat's bitwise; a wrong
+// bucket or radius rule drops corners, and the bitwise check shows it.
+// The sort's locality does not pay here: the rows in window order
+// (tools/splat_probe.py --windowed) made this kernel 31% slower on the
+// planted rows, whose neighbouring warps then hit the same cells, and no
+// faster on the backbones' (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -172,13 +188,48 @@ __device__ __forceinline__ unsigned long long warp_sums8(const unsigned long lon
   return s;
 }
 
-__global__ void __launch_bounds__(256) obj_vote_kernel(
+// The x window of point p's corners in hv_splat_windowed, [lo, hi): the
+// JAX kernel's keys (hv_splat.py:440-456, window_keys in ops/hv_splat.py)
+// put a point whose rotation radius is at most pad - 2 cells in x bucket bx
+// = clamp(floor(px / xb), 0, nb - 1) of its x cell px, whose window is
+// [bx * xb - pad, bx * xb + xb + pad); the larger radii go to the tail,
+// which keeps every corner. Points off the y range or not valid belong to
+// no window; place_vote drops their votes by the same test. Each product,
+// sum, root and quotient is rounded on its own, in window_keys' order.
+struct XWindow {
+  int xb, pad, nb, gx;  // bucket width, pad, buckets, grid x
+};
+
+__device__ __forceinline__ void x_window(const float* __restrict__ points,
+                                         const float* __restrict__ xyz,
+                                         const float* __restrict__ scale, int p,
+                                         const float* __restrict__ corner, float res,
+                                         const XWindow& w, int& lo, int& hi) {
+  const float cx = __fmul_rn(xyz[3 * p], scale[3 * p]);
+  const float cz = __fmul_rn(xyz[3 * p + 2], scale[3 * p + 2]);
+  const float r = __fdiv_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(cx, cx), __fmul_rn(cz, cz))), res);
+  if (!(r <= (float)(w.pad - 2))) {  // the tail
+    lo = -w.pad;
+    hi = w.gx + w.pad;
+    return;
+  }
+  const float px = __fdiv_rn(__fsub_rn(points[3 * p], corner[0]), res);
+  const int bx = min(max((int)floorf(__fdiv_rn(px, (float)w.xb)), 0), w.nb - 1);
+  lo = bx * w.xb - w.pad;
+  hi = lo + w.xb + 2 * w.pad;
+}
+
+// One category's objectness votes, one thread a (point, rotation) vote,
+// rotations fastest (obj_vote_kernel; with kWindow, windowed_vote_kernel:
+// a corner outside the point's x window weighs 0).
+template <bool kWindow>
+__device__ __forceinline__ void obj_votes(
     const float* __restrict__ points, const float* __restrict__ xyz,
     const float* __restrict__ scale, const float* __restrict__ obj,
     const float* __restrict__ valid, int n, const float* __restrict__ cosv,
     const float* __restrict__ sinv, int num_rots, const float* __restrict__ corner,
     const int* __restrict__ dims, float res, int gy, int gz, long long cells,
-    unsigned long long* __restrict__ acc) {
+    const XWindow& win, unsigned long long* __restrict__ acc) {
   const int cat = blockIdx.y;  // category c: rows c of xyz, scale, obj; grid c
   xyz += 3LL * n * cat;
   scale += 3LL * n * cat;
@@ -189,18 +240,22 @@ __global__ void __launch_bounds__(256) obj_vote_kernel(
   int f[3] = {0, 0, 0};
   float w1[3] = {0.f, 0.f, 0.f}, ob = 0.f;
   bool in = false;
+  int lo = 0, hi = 0;
   if (i < (long long)n * num_rots) {  // rotations fastest: a warp walks one point's arc
     const int p = (int)(i / num_rots), r = (int)(i - (long long)p * num_rots);
     in = place_vote(points, xyz, scale, obj, valid, p, cosv[r], sinv[r], corner, dims, res, f,
                     w1, ob);
+    if (kWindow && in) x_window(points, xyz, scale, p, corner, res, win, lo, hi);
   }
   const int base = (f[0] * gy + f[1]) * gz + f[2];
   // lanes out of range key apart (-1 - lane) and join no group
   const unsigned peers = __match_any_sync(0xffffffffu, in ? base : -1 - lane);
   unsigned long long v[8];
 #pragma unroll
-  for (int b = 0; b < 8; ++b)
-    v[b] = in ? to_fixed(corner_weight(w1, b >> 2, (b >> 1) & 1, b & 1, ob)) : 0ull;
+  for (int b = 0; b < 8; ++b) {
+    const bool keep = in && (!kWindow || (f[0] + (b >> 2) >= lo && f[0] + (b >> 2) < hi));
+    v[b] = keep ? to_fixed(corner_weight(w1, b >> 2, (b >> 1) & 1, b & 1, ob)) : 0ull;
+  }
   if (__all_sync(0xffffffffu, peers == 0xffffffffu)) {  // one cell for the whole warp
     const unsigned long long sum = warp_sums8(v);
     const int b = (lane >> 2) & 7;
@@ -214,6 +269,28 @@ __global__ void __launch_bounds__(256) obj_vote_kernel(
   for (int b = 0; b < 8; ++b)
     if (v[b] != 0ull)
       atomicAdd(acc + base + ((b >> 2) * gy + ((b >> 1) & 1)) * gz + (b & 1), v[b]);
+}
+
+__global__ void __launch_bounds__(256) obj_vote_kernel(
+    const float* __restrict__ points, const float* __restrict__ xyz,
+    const float* __restrict__ scale, const float* __restrict__ obj,
+    const float* __restrict__ valid, int n, const float* __restrict__ cosv,
+    const float* __restrict__ sinv, int num_rots, const float* __restrict__ corner,
+    const int* __restrict__ dims, float res, int gy, int gz, long long cells,
+    unsigned long long* __restrict__ acc) {
+  obj_votes<false>(points, xyz, scale, obj, valid, n, cosv, sinv, num_rots, corner, dims, res,
+                   gy, gz, cells, XWindow{0, 0, 1, 0}, acc);
+}
+
+__global__ void __launch_bounds__(256) windowed_vote_kernel(
+    const float* __restrict__ points, const float* __restrict__ xyz,
+    const float* __restrict__ scale, const float* __restrict__ obj,
+    const float* __restrict__ valid, int n, const float* __restrict__ cosv,
+    const float* __restrict__ sinv, int num_rots, const float* __restrict__ corner,
+    const int* __restrict__ dims, float res, int gy, int gz, long long cells, XWindow win,
+    unsigned long long* __restrict__ acc) {
+  obj_votes<true>(points, xyz, scale, obj, valid, n, cosv, sinv, num_rots, corner, dims, res,
+                  gy, gz, cells, win, acc);
 }
 
 __global__ void __launch_bounds__(256) vote6_kernel(
@@ -278,118 +355,6 @@ __global__ void __launch_bounds__(256) vote6_kernel(
   }
 }
 
-// ---------------------------------------------------------------------------
-// The windowed objectness splat (hv_splat_windowed). The wrapper sorts the
-// points by the JAX kernel's keys: segment jy * nb + bx holds the points
-// whose votes' floor y plane is jy and whose x cell lies in x bucket bx
-// (xb cells wide), for the points whose rotation radius is at most pad - 2
-// cells; the tail segments gy * nb + jy hold the larger radii. A small
-// point's votes then land in the window of x cells [bx * xb - pad, bx * xb +
-// xb + pad) and y planes jy, jy + 1. One block takes one segment and one z
-// slab of kZSlab cells: it places the segment's votes, adds the corners that
-// fall in its (2, xb + 2 pad, kZSlab) window into shared memory as 64-bit
-// fixed point (2 x 112 x 32 x 8 B = 57 KB at xb = 32, pad = 40: the JAX
-// window's full z extent, 458 KB, does not fit a block), and adds each
-// touched cell to the grid with one global atomic. A corner outside the
-// window is dropped, as the JAX kernel's canvas drops it; with the radius
-// rule none is. The tail's votes go straight to the grid (a full-width pass).
-// Each vote is placed by place_vote and weighted by corner_weight, as in
-// obj_vote_kernel, and integer sums do not depend on order: the grid equals
-// hv_splat's bitwise.
-
-constexpr int kZSlab = 32;
-
-__global__ void windowed_kernel(const float* __restrict__ points,
-                                const float* __restrict__ xyz,
-                                const float* __restrict__ scale,
-                                const float* __restrict__ obj,
-                                const float* __restrict__ valid,
-                                const int* __restrict__ order,
-                                const int* __restrict__ seg_start,
-                                const int* __restrict__ seg_end, int nb, int xb, int pad,
-                                const float* __restrict__ cosv,
-                                const float* __restrict__ sinv, int num_rots,
-                                const float* __restrict__ corner,
-                                const int* __restrict__ dims, float res, int gx, int gy,
-                                int gz, unsigned long long* __restrict__ acc) {
-  extern __shared__ unsigned long long win[];  // [2][wx][kZSlab]
-  const int seg = blockIdx.x, z0 = blockIdx.y * kZSlab;
-  const int start = seg_start[seg], end = seg_end[seg];
-  if (start >= end) return;
-  const int jy = seg / nb, x0 = (seg % nb) * xb - pad, wx = xb + 2 * pad;
-  const int cells = 2 * wx * kZSlab;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) win[i] = 0ull;
-  __syncthreads();
-  const int np = end - start;
-  const long long votes = (long long)np * num_rots;
-  for (long long v = threadIdx.x; v < votes; v += blockDim.x) {
-    const int r = (int)(v / np), p = order[start + (int)(v - (long long)r * np)];
-    const float c = cosv[r], s = sinv[r];
-    // a cheap estimate of the vote's z cell first (within a few ulp of the
-    // placed one): slabs its corners cannot reach skip the exact placement
-    const float uz = (points[3 * p + 2] - s * (xyz[3 * p] * scale[3 * p])
-                      - c * (xyz[3 * p + 2] * scale[3 * p + 2]) - corner[2]) / res;
-    if (uz < (float)(z0 - 2) || uz >= (float)(z0 + kZSlab + 1)) continue;
-    int f[3];
-    float w1[3], ob;
-    if (!place_vote(points, xyz, scale, obj, valid, p, c, s, corner, dims, res, f, w1, ob))
-      continue;
-#pragma unroll
-    for (int bx = 0; bx < 2; ++bx)
-#pragma unroll
-      for (int by = 0; by < 2; ++by)
-#pragma unroll
-        for (int bz = 0; bz < 2; ++bz) {
-          const int lx = f[0] + bx - x0, ly = f[1] + by - jy, lz = f[2] + bz - z0;
-          if (lx < 0 || lx >= wx || ly < 0 || ly > 1 || lz < 0 || lz >= kZSlab) continue;
-          atomicAdd(win + (ly * wx + lx) * kZSlab + lz,
-                    to_fixed(corner_weight(w1, bx, by, bz, ob)));
-        }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const unsigned long long val = win[i];
-    if (val == 0ull) continue;
-    const int lz = i % kZSlab, lx = (i / kZSlab) % wx, ly = i / (kZSlab * wx);
-    const int x = x0 + lx, y = jy + ly, z = z0 + lz;
-    if (x < 0 || x >= gx || y >= gy || z >= gz) continue;
-    atomicAdd(acc + ((long long)x * gy + y) * gz + z, val);
-  }
-}
-
-// the tail: segments [first, last] are contiguous in the sorted order; one
-// thread per (point, rotation) vote, grid-stride, global atomics
-__global__ void tail_kernel(const float* __restrict__ points, const float* __restrict__ xyz,
-                            const float* __restrict__ scale, const float* __restrict__ obj,
-                            const float* __restrict__ valid, const int* __restrict__ order,
-                            const int* __restrict__ seg_start,
-                            const int* __restrict__ seg_end, int first, int last,
-                            const float* __restrict__ cosv,
-                            const float* __restrict__ sinv, int num_rots,
-                            const float* __restrict__ corner,
-                            const int* __restrict__ dims, float res, int gy, int gz,
-                            unsigned long long* __restrict__ acc) {
-  const int start = seg_start[first], np = seg_end[last] - start;
-  const long long votes = (long long)np * num_rots;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < votes;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int r = (int)(i / np), p = order[start + (int)(i - (long long)r * np)];
-    int f[3];
-    float w1[3], ob;
-    if (!place_vote(points, xyz, scale, obj, valid, p, cosv[r], sinv[r], corner, dims, res,
-                    f, w1, ob))
-      continue;
-#pragma unroll
-    for (int bx = 0; bx < 2; ++bx)
-#pragma unroll
-      for (int by = 0; by < 2; ++by)
-#pragma unroll
-        for (int bz = 0; bz < 2; ++bz)
-          atomicAdd(acc + ((long long)(f[0] + bx) * gy + (f[1] + by)) * gz + (f[2] + bz),
-                    to_fixed(corner_weight(w1, bx, by, bz, ob)));
-  }
-}
-
 __global__ void fixed_to_float_kernel(const unsigned long long* __restrict__ acc,
                                       long long total, float* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -401,25 +366,36 @@ __global__ void fixed_to_float_kernel(const unsigned long long* __restrict__ acc
 // channels 1 or 6, n_cat categories over the same points: xyz (n_cat, n,
 // 3), scale (n_cat, n, 3), obj (n_cat, n); acc: (n_cat, gx, gy, gz,
 // channels) uint64 fixed point, zeroed by the caller. corner (3,) float32
-// and dims (3,) int32, clipped to (gx, gy, gz), live on the device.
+// and dims (3,) int32, clipped to (gx, gy, gz), live on the device. x_bucket
+// > 0 (channels 1 only) runs hv_splat_windowed's votes: each corner kept
+// only inside its point's x window (x_window), gx a multiple of x_bucket.
 extern "C" int hv_votes_launch(const float* points, const float* xyz, const float* scale,
                                const float* obj, const float* valid, int n, int n_cat,
                                const float* cosv, const float* sinv, int num_rots,
                                const float* corner, const int* dims, float res, int gx,
-                               int gy, int gz, int channels, void* acc, void* stream) {
+                               int gy, int gz, int channels, int x_bucket, int x_pad,
+                               void* acc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((channels != 1 && channels != 6) || n_cat < 1 || n_cat > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((long long)gx * gy * gz >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (x_bucket != 0 && (channels != 1 || x_bucket < 0 || x_pad < 0 || gx % x_bucket != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long votes = (long long)n * num_rots;
   if (votes <= 0) return 0;
   const int nt = 256;
-  const unsigned blocks = (unsigned)((votes + nt - 1) / nt);
+  const dim3 grid((unsigned)((votes + nt - 1) / nt), n_cat);
+  const long long cells = (long long)gx * gy * gz;
   auto* a = static_cast<unsigned long long*>(acc);
-  auto* kernel = channels == 6 ? vote6_kernel : obj_vote_kernel;
-  kernel<<<dim3(blocks, n_cat), nt, 0, s>>>(points, xyz, scale, obj, valid, n, cosv, sinv,
-                                            num_rots, corner, dims, res, gy, gz,
-                                            (long long)gx * gy * gz, a);
+  if (x_bucket > 0) {
+    windowed_vote_kernel<<<grid, nt, 0, s>>>(points, xyz, scale, obj, valid, n, cosv, sinv,
+                                             num_rots, corner, dims, res, gy, gz, cells,
+                                             XWindow{x_bucket, x_pad, gx / x_bucket, gx}, a);
+  } else {
+    auto* kernel = channels == 6 ? vote6_kernel : obj_vote_kernel;
+    kernel<<<grid, nt, 0, s>>>(points, xyz, scale, obj, valid, n, cosv, sinv, num_rots, corner,
+                               dims, res, gy, gz, cells, a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -431,45 +407,5 @@ extern "C" int hv_fixed_to_float_launch(const void* acc, long long total, float*
     fixed_to_float_kernel<<<(unsigned)((total + nt - 1) / nt), nt, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const unsigned long long*>(acc), total, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// order (n,) int32: the points sorted by segment key; seg_start / seg_end
-// (gy * nb + gy,) int32: each segment's range in that order, the gy * nb
-// windowed segments first, then the gy tail segments; acc: (gx*gy*gz)
-// uint64 scratch, zeroed here; out: (gx, gy, gz) float32
-extern "C" int hv_splat_windowed_launch(const float* points, const float* xyz,
-                                        const float* scale, const float* obj,
-                                        const float* valid, int n, const int* order,
-                                        const int* seg_start, const int* seg_end,
-                                        int x_bucket, int x_pad, const float* cosv,
-                                        const float* sinv, int num_rots,
-                                        const float* corner, const int* dims, float res,
-                                        int gx, int gy, int gz, void* acc, float* out,
-                                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bucket <= 0 || x_pad < 0 || gx % x_bucket != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = gx / x_bucket;
-  const size_t smem = 2 * (size_t)(x_bucket + 2 * x_pad) * kZSlab * sizeof(unsigned long long);
-  cudaError_t e = cudaFuncSetAttribute(windowed_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long total = (long long)gx * gy * gz;
-  e = cudaMemsetAsync(acc, 0, total * sizeof(unsigned long long), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  unsigned long long* a = static_cast<unsigned long long*>(acc);
-  const int nt = 256;
-  if (n > 0) {
-    const dim3 grid(gy * nb, (gz + kZSlab - 1) / kZSlab);
-    windowed_kernel<<<grid, nt, smem, s>>>(points, xyz, scale, obj, valid, order, seg_start,
-                                           seg_end, nb, x_bucket, x_pad, cosv, sinv, num_rots,
-                                           corner, dims, res, gx, gy, gz, a);
-    tail_kernel<<<132 * 8, nt, 0, s>>>(points, xyz, scale, obj, valid, order, seg_start,
-                                       seg_end, gy * nb, gy * nb + gy - 1, cosv, sinv,
-                                       num_rots, corner, dims, res, gy, gz, a);
-  }
-  fixed_to_float_kernel<<<(unsigned)((total + nt - 1) / nt), nt, 0, s>>>(
-      static_cast<const unsigned long long*>(acc), total, out);
   return static_cast<int>(cudaGetLastError());
 }

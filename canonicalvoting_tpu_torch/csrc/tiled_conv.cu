@@ -15,13 +15,14 @@
 // grids on the card are refused by the wrappers, the plain versions serve
 // them on the CPU.
 //
-// tiled_conv3d, its prefolded stem, tiled_down2 and tiled_up2: occupied-row
-// GEMMs (conv_rows_kernel, up_rows_kernel). Their function needs the MACs
-// of occupied rows only: an unoccupied output cell is masked to zero (plus
-// the plain residual, if any), and an unoccupied coarse parent has no
-// occupied child. The listed tiles hold 5-26% occupied cells at the backbone's
-// levels and every listed tile holds at least one, so skipping empty 64-row
-// blocks saves nothing; the rows are compacted instead:
+// tiled_conv3d, its prefolded stem, tiled_down2, tiled_up2 and
+// tiled_up2_into: occupied-row GEMMs (conv_rows_kernel, up_rows_kernel).
+// Their function needs the MACs of occupied rows only: an unoccupied output
+// cell is masked to zero (plus the plain residual, if any), and an
+// unoccupied coarse parent has no occupied child. The listed tiles hold
+// 5-26% occupied cells at the backbone's levels and every listed tile holds
+// at least one, so skipping empty 64-row blocks saves nothing; the rows are
+// compacted instead:
 // - compact_kernel lists the live rows of each call on the card (a warp
 //   ballot scan per block and one atomicAdd per block into a row buffer and
 //   a device-side count; no host sync). The GEMM grid is sized from the
@@ -56,8 +57,9 @@
 //   are loaded once into shared memory, the 8 parities' weight slices
 //   stream through the ring, and each parity's epilogue writes its child's
 //   cout channels with 16-byte stores at occupied children only (the rest
-//   are the wrapper's zeros). skip_copy_kernel copies the U-Net skip into
-//   every listed fine cell with 16-byte vectors.
+//   are the wrapper's zeros; tiled_up2_into, below, writes them). The
+//   weights arrive K-major, (8, cout, cpad). skip_copy_kernel copies the
+//   U-Net skip into every listed fine cell with 16-byte vectors.
 // What bounds them: at the sparse levels the listed cells' bytes (inputs
 // gathered per tap mostly hit L2); the weights are re-read from L2 by every
 // row block, which dominates at L3 and L4 (there the host issues a call
@@ -90,17 +92,24 @@
 // splits over blocks as for the convs. The listed coarse cells are 12-55%
 // occupied at the backbone's levels, so the compaction cuts the MACs 2-8x.
 //
-// tiled_up2_into (tc_kernel) is an implicit GEMM on WMMA bf16 tiles with
-// f32 accumulation over the coarse parents of the listed fine tiles (row =
-// parent, z fastest; 8 * Cout columns, one per child parity), reducing over
-// the parent's input channels, writing its conv channels into a caller's
-// grid at a channel offset and pitch: dest holds the skip in channels
-// [0, skip_c) and receives the conv at [skip_c, skip_c + cout), the layout
-// [skip | conv] of the JAX kernel; nothing else of dest is touched. It runs
-// the MACs of every listed parent and stages each operand slice through
-// shared memory with no overlap of loads and math. The TPU kernel's lane
-// pack of the occupancy (pack_occ_updma) is a TPU layout; it reads the
-// margined occupancy grid as the others do.
+// tiled_up2_into is the same up_rows_kernel writing into a caller's grid:
+// dest holds the skip in channels [0, skip_c) and receives the conv at
+// [skip_c, skip_c + cout) (c_off), the layout [skip | conv] of the JAX
+// kernel, with no skip copy and no fill; nothing else of dest is touched.
+// Its contract writes exact zeros at every listed cell whose occupancy is
+// 0, whatever dest held there, where the concat route leaves its fresh
+// zeros: the epilogue (into = 1) stores zeros at the unoccupied children of
+// live parents, and compact_kernel lists the dead parents (no occupied
+// child) from the row buffer's end for up_dead_kernel, which zeroes their 8
+// children's conv channels. The conv channels are tiled_up2's bit for bit:
+// the same GEMM and epilogue, and +0 where tiled_up2 leaves its zeros. The
+// dead parents' zeros are most of the bytes at L0 (the listed fine cells
+// outnumber the occupied ones 54x there): one warp a dead parent writes
+// them at ~2.2 TB/s on the H100. Writing them from the GEMM kernel's spare
+// blocks, beside its row blocks, measured no faster (PERF.md): those
+// blocks hold the GEMM's shared memory, so too few warps store. The TPU
+// kernel's lane pack of the occupancy (pack_occ_updma) is a TPU layout; the
+// kernels read the margined occupancy grid.
 //
 // tiled_block3d (block_kernel, below) runs a whole BasicBlock per tile:
 // conv1 over the tile grown by one cell, kept in a per-block global scratch
@@ -159,121 +168,6 @@ __device__ __forceinline__ long long flat(const Grid& g, int x, int y, int z) {
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-// ---------------------------------------------------------------------------
-// tc_kernel: the WMMA implicit GEMM of tiled_up2_into. A block owns TM = 64
-// coarse parents x TN = 64 of the 8 * cout columns (one per child parity
-// and output channel); each of its 4 warps keeps 16 rows x 64 columns in 4
-// accumulator fragments. Operands are staged through shared memory in
-// TK = 32 slices with 16-byte loads where channel counts are multiples of 8.
-
-constexpr int TM = 64, TN = 64, TK = 32, TT = 128;
-constexpr int LDA = TK + 8, LDB = TN + 8, LDC = TN + 4;
-
-__global__ void __launch_bounds__(TT) tc_kernel(
-    const __nv_bfloat16* __restrict__ x, int cin, Grid gin,
-    const __nv_bfloat16* __restrict__ w, int cout, Tiles tl, int n_rows, Grid gout,
-    const float* __restrict__ scale, const float* __restrict__ bias,
-    const float* __restrict__ occ, int ctot, int c_off, int relu, int vec_a, int vec_b,
-    __nv_bfloat16* __restrict__ out) {
-  namespace wm = nvcuda::wmma;
-  __shared__ __align__(128) __nv_bfloat16 As[TM * LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[TK * LDB];
-  __shared__ __align__(128) float Cs[TM * LDC];
-  __shared__ long long a_base[TM];  // element offset of the parent's input, -1 past the rows
-  __shared__ int pc[TM][3];         // parent interior coordinates
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int n0 = blockIdx.y * TN;
-  const int K = cin, N = 8 * cout;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-
-  if (tid < TM) {
-    const int r = blockIdx.x * TM + tid;
-    long long base = -1;
-    if (r < n_rows) {
-      int px, py, pz;
-      parent_cell(tl, r, px, py, pz);
-      pc[tid][0] = px;
-      pc[tid][1] = py;
-      pc[tid][2] = pz;
-      base = flat(gin, px + MX, py + MY, pz + MZ) * cin;
-    }
-    a_base[tid] = base;
-  }
-  __syncthreads();
-
-  wm::fragment<wm::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wm::fill_fragment(acc[j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    // A: the parents' input channels k0 .. k0 + TK
-    if (vec_a) {
-      for (int v = tid; v < TM * TK / 8; v += TT) {
-        const int m = v / (TK / 8), kq = (v % (TK / 8)) * 8, kg = k0 + kq;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (a_base[m] >= 0 && kg < K) val = *reinterpret_cast<const uint4*>(x + a_base[m] + kg);
-        *reinterpret_cast<uint4*>(As + m * LDA + kq) = val;
-      }
-    } else {
-      for (int e = tid; e < TM * TK; e += TT) {
-        const int m = e / TK, kq = e % TK, kg = k0 + kq;
-        As[m * LDA + kq] = (a_base[m] >= 0 && kg < K) ? x[a_base[m] + kg] : zero;
-      }
-    }
-    // B: W[parity][k0 .. k0 + TK][channel] for columns n0 .. n0 + TN
-    if (vec_b) {
-      for (int v = tid; v < TK * TN / 8; v += TT) {
-        const int kk = v / (TN / 8), nq = (v % (TN / 8)) * 8;
-        const int kg = k0 + kk, n = n0 + nq;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (kg < K && n < N)
-          val = *reinterpret_cast<const uint4*>(
-              w + ((long long)(n / cout) * cin + kg) * cout + n % cout);
-        *reinterpret_cast<uint4*>(Bs + kk * LDB + nq) = val;
-      }
-    } else {
-      for (int e = tid; e < TK * TN; e += TT) {
-        const int kk = e / TN, nq = e % TN, kg = k0 + kk, n = n0 + nq;
-        Bs[kk * LDB + nq] = (kg < K && n < N)
-                                ? w[((long long)(n / cout) * cin + kg) * cout + n % cout]
-                                : zero;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, __nv_bfloat16, wm::row_major> a;
-      wm::load_matrix_sync(a, As + warp * 16 * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wm::fragment<wm::matrix_b, 16, 16, 16, __nv_bfloat16, wm::row_major> b;
-        wm::load_matrix_sync(b, Bs + kk * LDB + j * 16, LDB);
-        wm::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wm::store_matrix_sync(Cs + warp * 16 * LDC + j * 16, acc[j], LDC, wm::mem_row_major);
-  __syncthreads();
-
-  // column n = d * cout + co: channel c_off + co of child 2p + d in the
-  // (ctot)-channel grid
-  for (int e = tid; e < TM * TN; e += TT) {
-    const int m = e / TN, nn = e % TN, n = n0 + nn;
-    if (a_base[m] < 0 || n >= N) continue;
-    const int d = n / cout, co = n - d * cout;
-    const long long oc = flat(gout, 2 * pc[m][0] + (d & 1) + MX,
-                              2 * pc[m][1] + ((d >> 1) & 1) + MY, 2 * pc[m][2] + (d >> 2) + MZ);
-    float v = Cs[m * LDC + nn];
-    if (scale != nullptr) v = v * scale[co] + bias[co];
-    if (occ != nullptr) v = v * occ[oc];
-    if (relu) v = fmaxf(v, 0.f);
-    out[oc * ctot + c_off + co] = __float2bfloat16(v);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The occupied-row GEMMs of tiled_conv3d and tiled_up2 (see the header).
@@ -828,7 +722,9 @@ struct UpRows {
   const float* scale;
   const float* bias;
   const float* occ;
-  int ctot, relu, vec_a, vec_o;
+  int ctot, c_off;  // out's channels; the conv's first channel in them
+  int into;         // tiled_up2_into: exact zeros at unoccupied children
+  int relu, vec_a, vec_o;
   __nv_bfloat16* out;
 };
 
@@ -969,12 +865,17 @@ __global__ void __launch_bounds__(GT, 1) up_rows_kernel(const __grid_constant__ 
         if (icell[m] < 0 || gn >= p.cout) continue;
         const long long ch = flat(p.gout, 2 * pc[m][0] + dx + MX, 2 * pc[m][1] + dy + MY,
                                   2 * pc[m][2] + dz + MZ);
-        if (p.occ != nullptr && p.occ[ch] == 0.f) continue;  // the wrapper's zeros
-        const long long o = ch * p.ctot + gn;
+        const long long o = ch * p.ctot + p.c_off + gn;
+        // an unoccupied child: tiled_up2 leaves the wrapper's zeros, the
+        // into-conv writes them
+        const bool zero = p.occ != nullptr && p.occ[ch] == 0.f;
+        if (zero && !p.into) continue;
         if (p.vec_o) {
-          *reinterpret_cast<uint4*>(p.out + o) = *reinterpret_cast<const uint4*>(cs + m * LD + n);
+          *reinterpret_cast<uint4*>(p.out + o) =
+              zero ? make_uint4(0, 0, 0, 0) : *reinterpret_cast<const uint4*>(cs + m * LD + n);
         } else {
-          for (int t = 0; t < 8 && gn + t < p.cout; ++t) p.out[o + t] = cs[m * LD + n + t];
+          for (int t = 0; t < 8 && gn + t < p.cout; ++t)
+            p.out[o + t] = zero ? __float2bfloat16(0.f) : cs[m * LD + n + t];
         }
       }
       // the next parity's staging writes follow the next step's barrier
@@ -1004,6 +905,34 @@ __global__ void __launch_bounds__(256) skip_copy_kernel(Tiles tl, Grid g,
           *reinterpret_cast<const uint4*>(skip + cl * skip_ctot + v * 8);
     else
       out[cl * ctot + cout + v] = skip[cl * skip_ctot + v];
+  }
+}
+
+// tiled_up2_into's dead parents (no occupied child; listed from the row
+// buffer's end by compact_kernel, count[1] of them): exact zeros in
+// channels [c_off, c_off + cout) of their 8 children. One warp a dead
+// parent, its lanes over the children's channel runs (cout / 8 16-byte
+// stores a child where the widths allow), so a warp's stores land on a few
+// contiguous runs and the parent's coordinates are worked out once.
+__global__ void __launch_bounds__(256) up_dead_kernel(Tiles tl, Grid g, const int* rows,
+                                                      const int* count, int n_par, int cout,
+                                                      int ctot, int c_off, int vec,
+                                                      __nv_bfloat16* out) {
+  const int lane = threadIdx.x & 31, wpb = blockDim.x >> 5;
+  const int per = vec ? cout / 8 : cout;  // stores a child
+  for (int j = blockIdx.x * wpb + (threadIdx.x >> 5); j < count[1]; j += gridDim.x * wpb) {
+    int px, py, pz;
+    parent_cell(tl, rows[n_par - 1 - j], px, py, pz);
+    for (int e = lane; e < 8 * per; e += 32) {
+      const int d = e / per, v = e - d * per;
+      __nv_bfloat16* o = out + c_off +
+                         flat(g, 2 * px + (d & 1) + MX, 2 * py + ((d >> 1) & 1) + MY,
+                              2 * pz + (d >> 2) + MZ) * ctot;
+      if (vec)
+        reinterpret_cast<uint4*>(o)[v] = make_uint4(0, 0, 0, 0);
+      else
+        o[v] = __float2bfloat16(0.f);
+    }
   }
 }
 
@@ -1065,15 +994,20 @@ cudaError_t launch_conv_cols(const ConvRows& p, int n_list, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 // The fused BasicBlock (block_kernel). One block owns one listed tile at a
 // time, looping over the list with a stride of the grid. conv1 runs over the
-// tile grown by one cell on each side (its BN, mask and ReLU applied) into
-// the block's own slice of a global scratch, in bfloat16 as the two-conv path
+// tile grown by one cell on each side (its BN, mask and ReLU applied) into the
+// block's own slice of a global scratch, in bfloat16 as the two-conv path
 // rounds it; conv2 then reads its taps from that slice, adds the residual (the
-// input's own channels, or the fused 1x1 downsample GEMM) and writes the
-// tile. Both are a WMMA GEMM (conv_gemm) in tc_kernel's tiles, row blocks
-// of 64 cells. The scratch is written and read inside one kernel, so it is read
-// through plain loads (no __restrict__, which could route them through the
-// non-coherent read-only cache); __syncthreads orders the writes of one
-// phase before the reads of the next.
+// input's own channels, or the fused 1x1 downsample GEMM) and writes the tile.
+// Both are a WMMA GEMM (conv_gemm), row blocks of 64 cells. The scratch is
+// written and read inside one kernel, so it is read through plain loads (no
+// __restrict__, which could route them through the non-coherent read-only
+// cache); __syncthreads orders the writes of one phase before the reads of the
+// next.
+
+// the WMMA tiles: 64 rows x 64 columns a block of 4 warps, K in 32-wide
+// slices, shared-memory rows padded against bank conflicts
+constexpr int TM = 64, TN = 64, TK = 32, TT = 128;
+constexpr int LDA = TK + 8, LDB = TN + 8, LDC = TN + 4;
 
 using Frag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
 
@@ -1249,6 +1183,25 @@ __global__ void __launch_bounds__(TT) block_kernel(
   }
 }
 
+// up_rows_kernel at the narrowest block width that holds cout, after
+// compact_kernel has listed the live parents (and, with want_dead, the dead
+// ones from the buffer's end) into rows, n_par + 2 int32
+cudaError_t launch_up(UpRows p, int n_par, int* rows, int want_dead, cudaStream_t s) {
+  int* count = rows + n_par;
+  cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
+  compact_kernel<<<(n_par + 255) / 256, 256, 0, s>>>(p.tl, p.gout, p.occ, 1, n_par, rows,
+                                                     count, want_dead);
+  p.rows = rows;
+  p.count = count;
+  switch (block_cols(p.cout)) {
+    case 32: return launch_up_rows<32>(p, n_par, s);
+    case 64: return launch_up_rows<64>(p, n_par, s);
+    case 96: return launch_up_rows<96>(p, n_par, s);
+    case 128: return launch_up_rows<128>(p, n_par, s);
+    default: return launch_up_rows<256>(p, n_par, s);
+  }
+}
+
 }  // namespace
 
 // bfloat16 grids, weights, residual and skip; affines and occupancy are
@@ -1360,23 +1313,13 @@ extern "C" int tiled_up2_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Grid gi{cxm, cym, czm}, go{xm, ym, zm};
   const Tiles tl{tiles, n_rows, tx, ty, tz};
-  const int n_par = n_rows / 8, ctot = cout + skip_c;
-  int* count = rows + n_par;
-  cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
-  compact_kernel<<<(n_par + 255) / 256, 256, 0, s>>>(tl, go, occ, 1, n_par, rows, count, 0);
+  const int ctot = cout + skip_c;
   auto* ob = static_cast<__nv_bfloat16*>(out);
   const UpRows p{static_cast<const __nv_bfloat16*>(x), cin, cpad, gi,
-                 static_cast<const __nv_bfloat16*>(wt), cout, tl, go, rows, count, scale,
-                 bias, occ, ctot, relu, cin % 8 == 0 && aligned16(x),
+                 static_cast<const __nv_bfloat16*>(wt), cout, tl, go, nullptr, nullptr, scale,
+                 bias, occ, ctot, 0, 0, relu, cin % 8 == 0 && aligned16(x),
                  cout % 8 == 0 && ctot % 8 == 0 && aligned16(out), ob};
-  cudaError_t e;
-  switch (block_cols(cout)) {
-    case 32: e = launch_up_rows<32>(p, n_par, s); break;
-    case 64: e = launch_up_rows<64>(p, n_par, s); break;
-    case 96: e = launch_up_rows<96>(p, n_par, s); break;
-    case 128: e = launch_up_rows<128>(p, n_par, s); break;
-    default: e = launch_up_rows<256>(p, n_par, s); break;
-  }
+  const cudaError_t e = launch_up(p, n_rows / 8, rows, 0, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (skip != nullptr) {
     const int vec = skip_c % 8 == 0 && skip_ctot % 8 == 0 && ctot % 8 == 0 &&
@@ -1388,26 +1331,35 @@ extern "C" int tiled_up2_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: coarse grid (cxm, cym, czm); dest: fine grid (xm, ym, zm, ctot), written
-// at channels [skip_c, skip_c + cout) of the listed tiles' cells only
+// tiled_up2's conv into dest, a fine grid (xm, ym, zm, ctot) that holds the
+// skip in [0, skip_c): channels [skip_c, skip_c + cout) of every listed fine
+// cell receive the conv, exact zeros at the unoccupied ones (children of
+// live parents in up_rows_kernel's epilogue, every child of a dead parent in
+// up_dead_kernel); nothing else of dest is touched. x, wt, cpad, tiles,
+// n_rows and rows as tiled_up2_launch.
 extern "C" int tiled_up2_into_launch(
-    const void* x, int cin, int cxm, int cym, int czm, const void* w, int cout,
+    const void* x, int cin, int cxm, int cym, int czm, const void* wt, int cpad, int cout,
     const int* tiles, int n_rows, int tx, int ty, int tz, int xm, int ym, int zm,
-    const float* scale, const float* bias, const float* occ, int skip_c, int ctot,
-    int relu, void* dest, void* stream) {
+    const float* scale, const float* bias, const float* occ, int skip_c, int ctot, int relu,
+    int* rows, void* dest, void* stream) {
+  if (n_rows <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Grid gi{cxm, cym, czm}, go{xm, ym, zm};
   const Tiles tl{tiles, n_rows, tx, ty, tz};
   const int n_par = n_rows / 8;
-  if (n_par > 0)
-    tc_kernel<<<dim3((n_par + TM - 1) / TM, (8 * cout + TN - 1) / TN), TT, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(x), cin, gi, static_cast<const __nv_bfloat16*>(w),
-        cout, tl, n_par, go, scale, bias, occ, ctot, skip_c, relu,
-        cin % 8 == 0 && aligned16(x), cout % 8 == 0 && aligned16(w),
-        static_cast<__nv_bfloat16*>(dest));
+  auto* ob = static_cast<__nv_bfloat16*>(dest);
+  const int vec = cout % 8 == 0 && ctot % 8 == 0 && skip_c % 8 == 0 && aligned16(dest);
+  const UpRows p{static_cast<const __nv_bfloat16*>(x), cin, cpad, gi,
+                 static_cast<const __nv_bfloat16*>(wt), cout, tl, go, nullptr, nullptr, scale,
+                 bias, occ, ctot, skip_c, 1, relu, cin % 8 == 0 && aligned16(x), vec, ob};
+  const int want_dead = occ != nullptr;
+  const cudaError_t e = launch_up(p, n_par, rows, want_dead, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (want_dead)
+    up_dead_kernel<<<blocks_for((long long)n_par * 32, 256), 256, 0, s>>>(
+        tl, go, rows, rows + n_par, n_par, cout, ctot, skip_c, vec, ob);
   return static_cast<int>(cudaGetLastError());
 }
-
 
 // x: (xm, ym, zm, cin); w1 (27, cin, cmid), w2 (27, cmid, cout), rw (cin,
 // cout) or null for the identity residual (cin == cout); mid: n_ctas * (tx +

@@ -128,8 +128,8 @@ def hough_voting_obj(points: torch.Tensor, xyz: torch.Tensor,
     :func:`hv_splat_windowed` when ``gx % 32 == 0`` and the plane splat
     otherwise; "auto" and "pallas" run the plane splat. Every route gives
     the same grid. xyz (C, N, 3), scale (C, N, 3) and obj (C, N) give the C
-    categories' grids (C, gx, gy, gz) over the same points: one plane splat
-    launch, or one windowed splat per category."""
+    categories' grids (C, gx, gy, gz) over the same points in one splat
+    launch, plane or windowed."""
     check_hv_method(method)
     if valid is not None:
         valid = valid.to(points.dtype)
@@ -138,14 +138,8 @@ def hough_voting_obj(points: torch.Tensor, xyz: torch.Tensor,
     dims = clipped_grid_dims(corners, res, grid_shape)
     kw = dict(num_rots=num_rots, grid_shape=grid_shape, valid=valid)
     if method == "pallas_windowed" and grid_shape[0] % WINDOW_X_BUCKET == 0:
-        def windowed(x, s, o):
-            return hv_splat_windowed(points, x, s, o, corners[0], dims, res,
-                                     x_bucket=WINDOW_X_BUCKET, **kw)
-
-        if obj.dim() == 2:
-            return torch.stack([windowed(xyz[c], scale[c], obj[c])
-                                for c in range(obj.shape[0])])
-        return windowed(xyz, scale, obj)
+        return hv_splat_windowed(points, xyz, scale, obj, corners[0], dims,
+                                 res, x_bucket=WINDOW_X_BUCKET, **kw)
     return hv_splat(points, xyz, scale, obj, corners[0], dims, res, **kw)
 
 

@@ -5,11 +5,11 @@ Counterpart of ``hv_splat_pallas`` in
 ``channels=1`` objectness grid, ``hv_splat6`` its ``channels=6`` raw sums
 ``[obj, obj*cos, obj*sin, obj*sx, obj*sy, obj*sz]``, each of one category
 or of several in one launch (the separate evaluator's categories);
-``hv_splat_windowed`` is ``hv_splat_windowed`` there,
-``hv_splat``'s function over points sorted into (y plane, x bucket)
-windows. The kernels are in ``csrc/hv_splat.cu``; its header says what
-bounds them on the H100, and how they make the sums deterministic (64-bit
-fixed-point integer atomics).
+``hv_splat_windowed`` is ``hv_splat_windowed`` there, ``hv_splat``'s
+function through (y plane, x bucket) windows. The kernels are in
+``csrc/hv_splat.cu``; its header says what bounds them on the H100, and
+how they make the sums deterministic (64-bit fixed-point integer
+atomics).
 
 The wrappers run the kernel for CUDA tensors and the plain version for CPU
 tensors, and raise for anything else. ``<wrapper>.launches`` counts kernel
@@ -35,11 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "hv_votes_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
-                        ctypes.c_float, _I, _I, _I, _I, _P, _P],
+                        ctypes.c_float, _I, _I, _I, _I, _I, _I, _P, _P],
     "hv_fixed_to_float_launch": [_P, ctypes.c_longlong, _P, _P],
-    "hv_splat_windowed_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                                 _P, _P, _I, _P, _P, ctypes.c_float, _I, _I,
-                                 _I, _P, _P, _P],
 }
 _launcher = functools.partial(launcher, "hv_splat", _ARGTYPES)
 
@@ -201,10 +198,12 @@ def _kernel_args(points, xyz, scale, obj, corner, dims, valid, num_rots,
                                                              points.device)
 
 
-def _votes(acc, f, v, d, tables, res, num_rots, grid_shape, channels):
+def _votes(acc, f, v, d, tables, res, num_rots, grid_shape, channels,
+           window=(0, 0)):
     """Launch the vote kernel of ``_kernel_args``' inputs: every category's
     votes added into ``acc``, (C, gx, gy, gz, channels) int64 fixed point
-    that the caller zeroed."""
+    that the caller zeroed. ``window`` (x_bucket, x_pad) with x_bucket > 0
+    runs the windowed splat's vote kernel."""
     cosv, sinv = tables
     gx, gy, gz = grid_shape
     n_cat = f[3].shape[0] if f[3].dim() == 2 else 1
@@ -212,7 +211,7 @@ def _votes(acc, f, v, d, tables, res, num_rots, grid_shape, channels):
         *[t.data_ptr() for t in f[:4]], None if v is None else v.data_ptr(),
         f[0].shape[0], n_cat, cosv.data_ptr(), sinv.data_ptr(), num_rots,
         f[4].data_ptr(), d.data_ptr(), float(res), gx, gy, gz, channels,
-        acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        *window, acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check(rc, "hv_splat votes")
 
 
@@ -224,20 +223,29 @@ def _fixed_to_float(acc: torch.Tensor, out: torch.Tensor) -> None:
 
 
 def _splat(points, xyz, scale, obj, corner, dims, res, num_rots,
-           grid_shape, valid, channels):
+           grid_shape, valid, channels, window=None):
+    """The splats' route: the plain version for CPU tensors, else the
+    scratch, the vote kernel (windowed with ``window``, (x_bucket,
+    x_pad)) and the conversion."""
     if _route(points, xyz, scale, obj, corner, dims, valid,
               categories=True) == "plain":
+        kw = dict(num_rots=num_rots, grid_shape=grid_shape, valid=valid)
+        if window is not None:
+            return hv_splat_windowed_plain(
+                points, xyz, scale, obj, corner, dims, res, x_bucket=window[0],
+                x_pad=window[1], **kw)
         return hv_splat_plain(points, xyz, scale, obj, corner, dims, res,
-                              num_rots=num_rots, grid_shape=grid_shape,
-                              valid=valid, channels=channels)
+                              channels=channels, **kw)
     f, v, d, tables = _kernel_args(points, xyz, scale, obj, corner, dims,
                                    valid, num_rots, grid_shape)
     shape = tuple(obj.shape[:-1]) + tuple(grid_shape) + (channels,)
     acc = torch.zeros(shape, dtype=torch.int64, device=points.device)
     out = torch.empty(shape, dtype=torch.float32, device=points.device)
-    _votes(acc, f, v, d, tables, res, num_rots, grid_shape, channels)
+    _votes(acc, f, v, d, tables, res, num_rots, grid_shape, channels,
+           (0, 0) if window is None else window)
     _fixed_to_float(acc, out)
-    (hv_splat6 if channels == 6 else hv_splat).launches += 1
+    (hv_splat_windowed if window is not None
+     else hv_splat6 if channels == 6 else hv_splat).launches += 1
     return out
 
 
@@ -317,8 +325,15 @@ def hv_splat_windowed_plain(points, xyz, scale, obj, corner, dims, res, *,
     kernel's canvas), tail points keep every corner and points of no
     segment none; summed in float64 as :func:`hv_splat_plain`. With the
     keys right no corner leaves its window, so this equals hv_splat_plain;
-    a wrong bucket or a dropped tail point shows."""
+    a wrong bucket or a dropped tail point shows. A leading category axis
+    on xyz, scale and obj gives one grid per category, stacked."""
     _check_window(grid_shape, x_bucket, x_pad)
+    kw = dict(num_rots=num_rots, grid_shape=grid_shape, valid=valid,
+              x_bucket=x_bucket, x_pad=x_pad)
+    if obj.dim() == 2:
+        return torch.stack([hv_splat_windowed_plain(
+            points, xyz[c], scale[c], obj[c], corner, dims, res, **kw)
+            for c in range(obj.shape[0])])
     gx, gy, _ = grid_shape
     nb = gx // x_bucket
     key = window_keys(points, xyz, scale, corner, dims, res,
@@ -342,43 +357,23 @@ def hv_splat_windowed(points: torch.Tensor, xyz: torch.Tensor,
                       chunk_points: int = 128, rot_chunk: int = 8,
                       x_bucket: int = 32, x_pad: int = 40) -> torch.Tensor:
     """:func:`hv_splat`'s objectness grid through (y plane, x bucket)
-    windows: points sorted by :func:`window_keys`, each windowed segment
-    splatted into its own x window, the large-radius tail over the full
-    width. Counterpart of the JAX package's ``hv_splat_windowed``
+    windows: each point's corners kept only inside the x window of its
+    :func:`window_keys` segment (the large-radius tail: the full width).
+    Counterpart of the JAX package's ``hv_splat_windowed``
     (``ops/pallas/hv_splat.py:404``); ``chunk_points`` and ``rot_chunk``
     size that kernel's MXU steps and are accepted and unused here, and no
-    keyword changes the result. Needs ``gx % x_bucket == 0``. On the card
-    the grid equals hv_splat's bitwise: each vote is placed and weighted by
-    the same float operations, and the fixed-point sums do not depend on
-    order."""
+    keyword changes the result. Needs ``gx % x_bucket == 0``. xyz (C, N,
+    3), scale (C, N, 3) and obj (C, N) splat C categories in one launch,
+    as :func:`hv_splat`. On the card each vote is placed once and each
+    window worked out in the vote kernel (``csrc/hv_splat.cu``:
+    ``windowed_vote_kernel``); the grid equals hv_splat's bitwise: each
+    vote is placed and weighted by the same float operations, and the
+    fixed-point sums do not depend on order."""
     del chunk_points, rot_chunk
     _check_window(grid_shape, x_bucket, x_pad)
-    kw = dict(grid_shape=grid_shape, valid=valid, x_bucket=x_bucket,
-              x_pad=x_pad)
-    if _route(points, xyz, scale, obj, corner, dims, valid) == "plain":
-        return hv_splat_windowed_plain(points, xyz, scale, obj, corner, dims,
-                                       res, num_rots=num_rots, **kw)
-    gx, gy, gz = grid_shape
-    dev = points.device
-    f, v, d, (cosv, sinv) = _kernel_args(points, xyz, scale, obj, corner, dims,
-                                         valid, num_rots, grid_shape)
-    key = window_keys(f[0], f[1], f[2], f[4], d, res, **kw)
-    sorted_key, order = torch.sort(key, stable=True)
-    segs = torch.arange(gy * (gx // x_bucket) + gy, device=dev)
-    starts = torch.searchsorted(sorted_key, segs).to(torch.int32)
-    ends = torch.searchsorted(sorted_key, segs + 1).to(torch.int32)
-    order = order.to(torch.int32)
-    acc = torch.empty(gx * gy * gz, dtype=torch.int64, device=dev)
-    out = torch.empty(grid_shape, dtype=torch.float32, device=dev)
-    rc = _launcher("hv_splat_windowed_launch")(
-        *[t.data_ptr() for t in f[:4]], None if v is None else v.data_ptr(),
-        points.shape[0], order.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-        x_bucket, x_pad, cosv.data_ptr(), sinv.data_ptr(), num_rots,
-        f[4].data_ptr(), d.data_ptr(), float(res), gx, gy, gz, acc.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    check(rc, "hv_splat_windowed")
-    hv_splat_windowed.launches += 1
-    return out
+    out = _splat(points, xyz, scale, obj, corner, dims, res, num_rots,
+                 grid_shape, valid, 1, window=(x_bucket, x_pad))
+    return out.reshape(tuple(obj.shape[:-1]) + tuple(grid_shape))
 
 
 hv_splat_windowed.launches = 0

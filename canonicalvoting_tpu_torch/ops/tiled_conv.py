@@ -51,8 +51,9 @@ _ARGTYPES = {
                            _P],
     "tiled_up2_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
                          _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "tiled_up2_into_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    "tiled_up2_into_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
+                              _P],
     "tiled_block3d_launch": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
                              _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P, _P],
@@ -621,11 +622,13 @@ def tiled_up2_into(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
     """``tiled_up2``'s conv written IN PLACE into ``dest``: a fine grid of
     ``skip_c + cout`` channels holding the skip in ``[0, skip_c)``. Over the
     listed fine tiles, channels ``[skip_c, skip_c + cout)`` receive
-    ``relu?(occ * (W[d] @ in[p] * scale + bias))``; the skip channels and
-    every cell outside the tiles keep dest's values. Returns ``dest``, laid
-    out ``[skip | conv]`` (the next conv permutes its input rows).
-    Counterpart of the JAX package's ``tiled_up2_into``
-    (``ops/pallas/tiled_conv.py:1961``)."""
+    ``relu?(occ * (W[d] @ in[p] * scale + bias))``, exact zeros where occ
+    is 0 whatever dest held there; the skip channels and every cell outside
+    the tiles keep dest's values. Returns ``dest``, laid out ``[skip |
+    conv]`` (the next conv permutes its input rows). Counterpart of the JAX
+    package's ``tiled_up2_into`` (``ops/pallas/tiled_conv.py:1961``). On
+    the card it runs tiled_up2's occupied-row GEMM over the live parents,
+    so its conv channels equal tiled_up2's bit for bit."""
     _check_grid(x, "x")
     _check_grid(dest, "dest")
     if w.shape[:2] != (8, x.shape[3]):
@@ -650,13 +653,16 @@ def tiled_up2_into(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
               relu_out=relu_out)
     if _route(x) == "plain":
         return tiled_up2_into_plain(x, w, tiles, dest=dest, skip_c=skip_c, **kw)
+    _check_cells(fshape)
     dev = x.device
-    wf, sc, bi, oc = _like(w, x), _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
-    cells = tile_shape[0] * tile_shape[1] * tile_shape[2]
+    wt, cpad = _k_major(w, x.dtype, dev, parities=True)
+    sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
+    n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
+    rows = torch.empty(n_rows // 8 + 2, dtype=torch.int32, device=dev)
     rc = _launcher("tiled_up2_into_launch")(
-        x.data_ptr(), x.shape[3], *x.shape[:3], wf.data_ptr(),
-        cout, tiles.data_ptr(), tiles.shape[0] * cells, *tile_shape, *fshape,
-        _ptr(sc), _ptr(bi), _ptr(oc), skip_c, dest.shape[3], int(relu_out),
+        x.data_ptr(), x.shape[3], *x.shape[:3], wt.data_ptr(), cpad, cout,
+        tiles.data_ptr(), n_rows, *tile_shape, *fshape, _ptr(sc), _ptr(bi),
+        _ptr(oc), skip_c, dest.shape[3], int(relu_out), rows.data_ptr(),
         dest.data_ptr(), _stream())
     check(rc, "tiled_up2_into")
     tiled_up2_into.launches += 1

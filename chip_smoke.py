@@ -19,19 +19,26 @@ fold of the stem kernel of the plain version's own, not the kernel's
 K-major weights; each splat channel or category within 1e-4 of its own
 peak, each channel of the 6-channel call over the categories within 1e-4
 of its own peak plus 16 steps of the 2^-32 fixed point). The occupied-row
-kernels (tiled_conv3d, the prefolded stem, tiled_down2, tiled_up2) must
-also give bitwise-equal outputs on a repeated call, and equal their plain
-versions on random inputs that are non-zero at unoccupied cells too (x or the fold, a plain residual, the skip) at one L0
-and one L1 configuration (the stem: L0; the down: each of L1-L4; both
-with exact zeros at their unoccupied listed cells); their times are summed
-by level. Both splats must be bitwise equal to themselves on a repeat;
-the objectness splat's joint call bitwise equal to the windowed splat,
-and a call over nine made-up categories to the nine single calls; each
-splat's call over the separate path's nine categories bitwise equal to
-its nine single calls. Their vote kernels, scratch fills and conversions
-are timed apart. One call of each of the prefolded stem, the down and the
-three splats runs under torch.cuda.set_sync_debug_mode("error"): no host
-sync inside. The fused BasicBlock kernel, which no path runs, is held
+kernels (tiled_conv3d, the prefolded stem, tiled_down2, tiled_up2,
+tiled_up2_into) must also give bitwise-equal outputs on a repeated call,
+and equal their plain versions on random inputs that are non-zero at
+unoccupied cells too (x or the fold, a plain residual, the skip, the
+into-conv's dest with junk in its conv channels) at one L0 and one L1
+configuration (the stem: L0; the down: each of L1-L4; the stem, the down
+and the into-conv with exact zeros at their unoccupied listed cells, the
+into-conv at the children of dead coarse parents too, and keeping dest's
+skip channels and unlisted cells bit for bit); their times are summed by
+level. The into-conv's conv channels must equal tiled_up2's bit for bit at
+both of its levels. The splats must be bitwise equal to themselves on a
+repeat; the objectness splat's joint call bitwise equal to the windowed
+splat, and a call over nine made-up categories to the nine single calls;
+each splat's call over the separate path's nine categories bitwise equal
+to its nine single calls; the windowed splat (joint, and over the separate
+path's nine categories) bitwise equal to the objectness splat on the
+planted head rows and on the backbones' own. Their vote kernels, scratch
+fills and conversions are timed apart. One call of each of the prefolded
+stem, the down and the three splats runs under
+torch.cuda.set_sync_debug_mode("error"): no host sync inside. The fused BasicBlock kernel, which no path runs, is held
 against its plain version and the two-conv output on the recorded input of
 each of the joint pass's 23 blocks.
 Phase 2 drives the joint inference path at full MinkUNet34C width on three
@@ -132,10 +139,10 @@ SOURCES = {
                   "vote6_kernel, fixed_to_float_kernel"),
     "tiled_up2_into": ("canonicalvoting_tpu_torch/csrc/tiled_conv.cu",
                        "canonicalvoting_tpu/ops/pallas/tiled_conv.py:1961",
-                       "tc_kernel"),
+                       "compact_kernel, up_rows_kernel (into), up_dead_kernel"),
     "hv_splat_windowed": ("canonicalvoting_tpu_torch/csrc/hv_splat.cu",
                           "canonicalvoting_tpu/ops/pallas/hv_splat.py:404",
-                          "windowed_kernel, tail_kernel, fixed_to_float_kernel"),
+                          "windowed_vote_kernel, fixed_to_float_kernel"),
     "tiled_block3d": ("canonicalvoting_tpu_torch/csrc/tiled_conv.cu",
                       "canonicalvoting_tpu/ops/pallas/tiled_conv.py:977",
                       "block_kernel"),
@@ -374,9 +381,10 @@ def recorder(records, module, name):
 
 
 def record_calls(pipe, sep, args, rows, sep_args, sep_rows):
-    """{config: record} of every kernel call one scene's passes make: the
-    joint path, the separate path's prefolded stem and its objectness splat
-    over the categories (its other calls have the joint path's
+    """({config: record} of every kernel call one scene's passes make, the
+    backbones' head rows {"joint", "separate"}): the joint path, the
+    separate path's prefolded stem and its objectness splat over the
+    categories, plane and windowed (its other calls have the joint path's
     configurations), the non-lazy tails' splats (joint, and over the
     separate path's categories) and the joint path's variant routes (the
     into-convs and the windowed splat)."""
@@ -385,11 +393,11 @@ def record_calls(pipe, sep, args, rows, sep_args, sep_rows):
     import canonicalvoting_tpu_torch.models.dense_unet as du
     import canonicalvoting_tpu_torch.ops.hough_voting as hv
 
-    records = {}
+    records, heads = {}, {}
     with patched(du, **{n: recorder(records, du, n) for n in
                         ("tiled_conv3d", "tiled_down2", "tiled_up2")}), \
             patched(hv, hv_splat=recorder(records, hv, "hv_splat")):
-        pipe.backbone(args)
+        heads["joint"] = pipe.backbone(args)
         pipe.tail(rows, args.coords_w, args.valid, args.grid_shape)
     with variants(pipe), \
             patched(du, tiled_up2_into=recorder(records, du, "tiled_up2_into")), \
@@ -399,10 +407,16 @@ def record_calls(pipe, sep, args, rows, sep_args, sep_rows):
         pipe.tail(rows, args.coords_w, args.valid, args.grid_shape)
     with patched(du, tiled_conv3d_prefolded=recorder(
             records, du, "tiled_conv3d_prefolded")):
-        sep.backbones(sep_args)
+        heads["separate"] = sep.backbones(sep_args)
     sep_heads = torch.as_tensor(sep_rows, device=sep_args.valid.device)
-    with patched(hv, hv_splat=recorder(records, hv, "hv_splat")):
+    with patched(hv, hv_splat=recorder(records, hv, "hv_splat"),
+                 hv_splat_windowed=recorder(records, hv, "hv_splat_windowed")):
         sep.vote(sep_heads, sep_args)
+        method, sep.hv_method = sep.hv_method, "pallas_windowed"
+        try:  # the separate variant's splat
+            sep.vote(sep_heads, sep_args)
+        finally:
+            sep.hv_method = method
     pipe.lazy_rot_scale = sep.lazy_rot_scale = False
     try:
         with patched(hv, hv_splat6=recorder(records, hv, "hv_splat6")):
@@ -410,7 +424,7 @@ def record_calls(pipe, sep, args, rows, sep_args, sep_rows):
             sep.vote(sep_heads, sep_args)
     finally:
         pipe.lazy_rot_scale = sep.lazy_rot_scale = True
-    return records
+    return records, heads
 
 
 def occupied_work(r, occ_of):
@@ -577,6 +591,15 @@ def fresh(kw):
     return {**kw, "dest": kw["dest"].clone()} if "dest" in kw else kw
 
 
+def into_conv_rows(t, args, kw):
+    """The into-conv's conv channels at its listed cells: what it computes
+    (the skip channels and the unlisted cells are dest's, held apart)."""
+    import canonicalvoting_tpu_torch.ops.tiled_conv as tc
+
+    flat = tc._flat(tc._row_cells(args[2], kw["tile_shape"]), t.shape)
+    return t.reshape(-1, t.shape[3])[flat, kw["skip_c"]:]
+
+
 def block_bound(x, w1, w2, tiles, ts, occ, res_w):
     """(bound_ms, bound_by) of one BasicBlock: the listed cells' input and
     output, both weights (and the 1x1 downsample's) and occupancy moved
@@ -654,12 +677,14 @@ def phase1_blocks(pipe, args, s, failures):
             failures.append(("tiled_block3d", i, err, tol, err2, tol2))
         errs.append((err, scale, tol, err2, tol2))
     s["launches"] = tc.tiled_block3d.launches
-    s["library_ms"] = s["host_ms"] = s["device_ms"] = None
+    s["library_ms"] = None
     s["two_conv_ms"] = 0.0
     for i, (blk, x, occ, tiles, ts, out) in enumerate(blocks):
         a, kw = block_call(blk, x, occ, tiles, ts)
         err, scale, tol, err2, tol2 = errs[i]
         ms = time_ms(lambda: tc.tiled_block3d(*a, **kw), 5)
+        host = host_ms(lambda: tc.tiled_block3d(*a, **kw), 2)
+        dev_ms = device_ms(lambda: tc.tiled_block3d(*a, **kw), 2, host)
         plain_ms = time_ms(lambda: tc.tiled_block3d_plain(*a, **kw), 2)
         two_ms = time_ms(lambda: two_conv(blk, x, occ, tiles, ts), 5)
         (bound_ms, bound_by), work = block_bound(x, a[1], a[2], tiles, ts, occ,
@@ -668,6 +693,8 @@ def phase1_blocks(pipe, args, s, failures):
         s["ms"] += ms
         s["plain_ms"] += plain_ms
         s["two_conv_ms"] += two_ms
+        s["host_ms"] += host
+        s["device_ms"] += dev_ms
         s["bound_ms"] += bound_ms
         s[bound_by] += bound_ms
         emit({"phase": 1, "kernel": "tiled_block3d", "block": i,
@@ -676,7 +703,8 @@ def phase1_blocks(pipe, args, s, failures):
                          "1x1" if blk.downsample else "identity"],
               "max_abs_err": err, "ref_max": scale, "tol": tol,
               "two_conv_max_abs_err": err2, "two_conv_tol": tol2,
-              "kernel_ms": ms, "plain_ms": plain_ms, "two_conv_ms": two_ms,
+              "kernel_ms": ms, "host_ms": host, "device_ms": dev_ms,
+              "plain_ms": plain_ms, "two_conv_ms": two_ms,
               "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
               **work})
     blocks.clear()
@@ -686,13 +714,20 @@ def phase1_blocks(pipe, args, s, failures):
 # must not depend on the row order the compaction's atomics give; the
 # levels of their unmasked-input checks
 ROW_KERNELS = {"tiled_conv3d": (0, 1), "tiled_conv3d_prefolded": (0,),
-               "tiled_down2": (1, 2, 3, 4), "tiled_up2": (0, 1)}
-# the occupied-row kernels that leave an unoccupied listed cell as the
-# wrapper's zero (no residual or skip to write there)
-ZERO_AT_UNOCCUPIED = ("tiled_conv3d_prefolded", "tiled_down2")
+               "tiled_down2": (1, 2, 3, 4), "tiled_up2": (0, 1),
+               "tiled_up2_into": (0, 1)}
+# the occupied-row kernels that write exact zeros at an unoccupied listed
+# cell (no residual or skip to write there; the into-conv in its conv
+# channels, over a dest that holds junk there)
+ZERO_AT_UNOCCUPIED = ("tiled_conv3d_prefolded", "tiled_down2", "tiled_up2_into")
+# the into-conv's dest holds junk in its conv channels in the checks: a
+# value the kernel writes nowhere
+INTO_JUNK = 7.0
 # the wrappers that zero-fill a fresh output grid, or the splat's scratch
 FILLED = ("tiled_conv3d", "tiled_conv3d_prefolded", "tiled_down2", "tiled_up2",
-          "hv_splat", "hv_splat6")
+          "hv_splat", "hv_splat6", "hv_splat_windowed")
+# the splats whose vote kernel and conversion are timed apart
+SPLATS = ("hv_splat", "hv_splat6", "hv_splat_windowed")
 # the wrappers held to no host sync inside a call
 SYNC_FREE = ("tiled_conv3d_prefolded", "tiled_down2", "hv_splat", "hv_splat6",
              "hv_splat_windowed")
@@ -792,6 +827,18 @@ def splat_checks(r, got, failures, extra):
         del batched
     extra.update(checks)
     failures.extend((r["name"], k) for k, ok in checks.items() if not ok)
+    splat_part_times(r, channels, extra)
+
+
+def splat_part_times(r, channels, extra, window=(0, 0)):
+    """A splat's vote kernel (windowed with ``window``, (x_bucket, x_pad))
+    and fixed-point conversion, each timed alone into ``extra``."""
+    import torch
+
+    import canonicalvoting_tpu_torch.ops.hv_splat as hs
+
+    a, kw = r["args"], r["kw"]
+    points, obj = a[0], a[3]
     num_rots, grid_shape = kw["num_rots"], kw["grid_shape"]
     f, v, d, tables = hs._kernel_args(*a[:6], kw.get("valid"), num_rots,
                                       grid_shape)
@@ -799,8 +846,41 @@ def splat_checks(r, got, failures, extra):
                       dtype=torch.int64, device=points.device)
     out = torch.empty(acc.shape, dtype=torch.float32, device=points.device)
     extra["vote_ms"] = time_ms(lambda: hs._votes(
-        acc, f, v, d, tables, a[6], num_rots, grid_shape, channels), 5)
+        acc, f, v, d, tables, a[6], num_rots, grid_shape, channels, window), 5)
     extra["convert_ms"] = time_ms(lambda: hs._fixed_to_float(acc, out), 5)
+
+
+def windowed_checks(r, got, heads, failures, extra):
+    """The windowed splat: bitwise equal to itself on a repeat and to
+    hv_splat on the recorded (planted) head rows and on the backbone's own
+    head rows of the same path (the joint model's, or the nine category
+    models' over the separate path's points); its vote kernel and
+    conversion timed apart."""
+    import inspect
+
+    import torch
+
+    import canonicalvoting_tpu_torch.ops.hv_splat as hs
+    from canonicalvoting_tpu_torch.eval.pipeline import (
+        slice_joint_heads, slice_separate_heads)
+
+    a, kw = r["args"], r["kw"]
+    plane_kw = {k: v for k, v in kw.items() if k not in ("x_bucket", "x_pad")}
+    if a[3].dim() == 2:
+        xyz, scale, prob = slice_separate_heads(heads["separate"])
+    else:
+        xyz, scale, _, prob = slice_joint_heads(heads["joint"])
+    bb = (a[0], xyz.contiguous(), torch.exp(scale).contiguous(),
+          prob.contiguous()) + tuple(a[4:])
+    checks = {"bitwise_repeat": torch.equal(got, hs.hv_splat_windowed(*a, **kw)),
+              "bitwise_equal_hv_splat": torch.equal(got, hs.hv_splat(*a, **plane_kw)),
+              "backbone_rows_bitwise_equal_hv_splat": torch.equal(
+                  hs.hv_splat_windowed(*bb, **kw), hs.hv_splat(*bb, **plane_kw))}
+    extra.update(checks)
+    failures.extend((r["name"], k) for k, ok in checks.items() if not ok)
+    pad = kw.get("x_pad", inspect.signature(hs.hv_splat_windowed)
+                 .parameters["x_pad"].default)
+    splat_part_times(r, 1, extra, window=(kw["x_bucket"], pad))
 
 
 def drop_wt(plain):
@@ -816,9 +896,12 @@ def drop_wt(plain):
 
 def unmasked_inputs(r):
     """(args, kw) of a recorded call with random inputs that are non-zero
-    at unoccupied cells too: x, and the plain residual or the skip. The
-    model's own inputs are zero there, so they cannot show a compaction
-    that drops the rows whose output is the residual alone."""
+    at unoccupied cells too: x, and the plain residual or the skip (the
+    into-conv: its dest's skip channels, with INTO_JUNK in its conv
+    channels at every cell). The model's own inputs are zero there, so they
+    cannot show a compaction that drops the rows whose output is the
+    residual alone, or an into-conv that leaves dest's values where its
+    contract writes zeros."""
     import torch
 
     a, kw = r["args"], dict(r["kw"])
@@ -830,6 +913,9 @@ def unmasked_inputs(r):
     for key in ("residual", "skip"):
         if kw.get(key) is not None:
             kw[key] = rand_like(kw[key])
+    if kw.get("dest") is not None:
+        kw["dest"] = rand_like(kw["dest"])
+        kw["dest"][..., kw["skip_c"]:] = INTO_JUNK
     return (rand_like(a[0]),) + tuple(a[1:]), kw
 
 
@@ -837,11 +923,16 @@ def unmasked_checks(records, kern, plain, levels, failures):
     """One configuration of each occupied-row kernel at each of its
     ROW_KERNELS levels (the conv with a plain residual) on unmasked random
     inputs, against the plain version, and a repeated call bitwise equal;
-    the prefolded stem and the down also write exact zeros at their
-    unoccupied listed cells."""
+    the prefolded stem, the down and the into-conv also write exact zeros
+    at their unoccupied listed cells (the into-conv: in its conv channels,
+    at the children of live and of dead coarse parents, over a dest that
+    holds INTO_JUNK there), and the into-conv keeps dest's skip channels
+    and its unlisted cells bit for bit."""
     import torch
+    import torch.nn.functional as F
 
     import canonicalvoting_tpu_torch.ops.tiled_conv as tc
+    from canonicalvoting_tpu_torch.data.dense_prep import MX, MY, MZ
 
     done = set()
     for key, r in records.items():
@@ -854,17 +945,34 @@ def unmasked_checks(records, kern, plain, levels, failures):
             continue
         done.add((name, lvl))
         a, kw = unmasked_inputs(r)
-        got, again = kern[name](*a, **kw), kern[name](*a, **kw)
-        want = plain[name](*a, **kw)
-        err, scale = rel_err(got, want)
+        got, again = kern[name](*a, **fresh(kw)), kern[name](*a, **fresh(kw))
+        want = plain[name](*a, **fresh(kw))
+        err, scale = (rel_err(into_conv_rows(got, a, kw), into_conv_rows(want, a, kw))
+                      if name == "tiled_up2_into" else rel_err(got, want))
         bitwise = bool(torch.equal(got, again))
         extra = {}
         if name in ZERO_AT_UNOCCUPIED:
-            flat = tc._flat(tc._row_cells(a[2], kw["tile_shape"]), got.shape)
-            dead = flat[kw["occ"].reshape(-1)[flat] == 0]
-            extra["unoccupied_exact_zeros"] = bool(
-                (got.reshape(-1, got.shape[3])[dead] == 0).all())
-            extra["unoccupied_listed_cells"] = int(dead.numel())
+            cells = tc._row_cells(a[2], kw["tile_shape"])
+            flat = tc._flat(cells, got.shape)
+            unocc = kw["occ"].reshape(-1)[flat] == 0
+            c0 = kw.get("skip_c", 0) if name == "tiled_up2_into" else 0
+            rows = got.reshape(-1, got.shape[3])
+            extra["unoccupied_exact_zeros"] = bool((rows[flat[unocc], c0:] == 0).all())
+            extra["unoccupied_listed_cells"] = int(unocc.sum())
+        if name == "tiled_up2_into":
+            occ = kw["occ"][MX:-MX, MY:-MY, MZ:-MZ]
+            parent_live = F.max_pool3d(occ[None, None], 2)[0, 0] > 0
+            p = cells >> 1
+            extra["dead_parent_cells"] = int(
+                (~parent_live[p[:, 0], p[:, 1], p[:, 2]]).sum())
+            listed = torch.zeros(rows.shape[0], dtype=torch.bool, device=rows.device)
+            listed[flat] = True
+            rows_in = kw["dest"].reshape(rows.shape)
+            skc = kw["skip_c"]
+            extra["skip_and_unlisted_kept"] = bool(
+                torch.equal(rows[:, :skc], rows_in[:, :skc])
+                and torch.equal(rows[~listed], rows_in[~listed]))
+            extra["dead_parents_present"] = extra["dead_parent_cells"] > 0
         if not (err <= CONV_REL_TOL * scale and bitwise and all(extra.values())):
             failures.append((key, "unmasked inputs", err, CONV_REL_TOL * scale,
                              bitwise, extra))
@@ -898,9 +1006,9 @@ def phase1(pipe, scene):
     # records, so that phase 2 holds the joint path's memory alone
     sep = build_separate()
     sep_args = sep.prepare_quantized(*quantize(scene))
-    records = record_calls(pipe, sep, args, planted_rows(scene, args),
-                           sep_args,
-                           separate_rows(scene, sep_args, len(sep.categories)))
+    records, heads = record_calls(
+        pipe, sep, args, planted_rows(scene, args), sep_args,
+        separate_rows(scene, sep_args, len(sep.categories)))
     del sep
     occ_of = {tuple(r["kw"]["occ"].shape): r["kw"]["occ"]
               for r in records.values() if r["name"] == "tiled_conv3d"}
@@ -911,8 +1019,8 @@ def phase1(pipe, scene):
                    "bound_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
                    "operations": 0.0, "host_ms": 0.0, "device_ms": 0.0,
                    "fill_ms": 0.0 if n in FILLED else None,
-                   "vote_ms": 0.0 if n in ("hv_splat", "hv_splat6") else None,
-                   "convert_ms": 0.0 if n in ("hv_splat", "hv_splat6") else None}
+                   "vote_ms": 0.0 if n in SPLATS else None,
+                   "convert_ms": 0.0 if n in SPLATS else None}
                for n in kern}
     # the occupied-row kernels' kernel and bound ms a scene, by level
     by_level = {n: {} for n in ROW_KERNELS}
@@ -923,9 +1031,18 @@ def phase1(pipe, scene):
         extra = {}
         if name in ROW_KERNELS:
             extra["level"] = levels[tuple(kw["occ"].shape)]
-            extra["bitwise_repeat"] = bool(torch.equal(got, kern[name](*a, **kw)))
+            extra["bitwise_repeat"] = bool(torch.equal(got, kern[name](*a, **fresh(kw))))
             if not extra["bitwise_repeat"]:
                 failures.append((key, "a repeated call differs"))
+        if name == "tiled_up2_into":  # the conv channels: tiled_up2's, bit for bit
+            up = tc.tiled_up2(*a[:3], **{k: kw[k] for k in (
+                "tile_shape", "scale", "bias", "occ", "relu_out")})
+            extra["bitwise_equal_tiled_up2"] = bool(torch.equal(
+                into_conv_rows(got, a, kw).view(torch.int16),
+                into_conv_rows(up, a, {**kw, "skip_c": 0}).view(torch.int16)))
+            del up
+            if not extra["bitwise_equal_tiled_up2"]:
+                failures.append((key, "conv channels differ from tiled_up2's"))
         if name == "tiled_down2":  # the weights laid out once by a caller
             wt = tc.down2_weights(a[1], dtype=a[0].dtype, device=a[0].device)
             extra["bitwise_equal_caller_layout"] = bool(torch.equal(
@@ -939,10 +1056,7 @@ def phase1(pipe, scene):
             if not extra["sync_free"]:
                 failures.append((key, "host sync inside the call", why))
         if name == "hv_splat_windowed":
-            extra["bitwise_equal_hv_splat"] = bool(torch.equal(got, hs.hv_splat(
-                *a, **{k: v for k, v in kw.items() if k != "x_bucket"})))
-            if not extra["bitwise_equal_hv_splat"]:
-                failures.append((key, "not bitwise equal to hv_splat"))
+            windowed_checks(r, got, heads, failures, extra)
         # the splats' parts: each channel, or each category's grid, within
         # 1e-4 of its own peak; each channel of the 6-channel call over the
         # categories within 1e-4 of its own peak plus FIXED_POINT_FLOOR
@@ -955,7 +1069,7 @@ def phase1(pipe, scene):
                      [(got[k, ..., c], want[k, ..., c])
                       for k in range(got.shape[0]) for c in range(6)],
                      FIXED_POINT_FLOOR)
-        elif name == "hv_splat" and got.dim() == 4:
+        elif name in ("hv_splat", "hv_splat_windowed") and got.dim() == 4:
             parts = ("categories", list(zip(got, want)), 0.0)
         if parts is not None:
             errs = [rel_err(g, w) for g, w in parts[1]]
@@ -967,7 +1081,8 @@ def phase1(pipe, scene):
             if not all(e <= t for (e, _), t in zip(errs, tols)):
                 failures.append((key, errs))
         else:
-            err, scale = rel_err(got, want)
+            err, scale = (rel_err(into_conv_rows(got, a, kw), into_conv_rows(want, a, kw))
+                          if name == "tiled_up2_into" else rel_err(got, want))
             tol = (SPLAT_REL_TOL if name.startswith("hv_splat")
                    else CONV_REL_TOL) * scale
             if not err <= tol:
@@ -1021,7 +1136,7 @@ def phase1(pipe, scene):
             lv["ms"] += ms * n
             lv["device_ms"] += extra["device_ms"] * n
             lv["bound_ms"] += bound_ms * n
-            lv["fill_ms"] += fill_ms * n
+            lv["fill_ms"] += (fill_ms or 0.0) * n
             lv["calls"] += n
         emit({"phase": 1, "kernel": name, "config": [str(v) for v in key[1:]],
               "per_scene": n, "max_abs_err": err, "ref_max": scale,
@@ -1031,6 +1146,7 @@ def phase1(pipe, scene):
     emit({"phase": 1, "by_level": by_level})
     unmasked_checks(records, kern, plain, levels, failures)
     records.clear()
+    heads.clear()
     occ_of.clear()
     torch.cuda.empty_cache()
     phase1_blocks(pipe, args, summary["tiled_block3d"], failures)

@@ -87,6 +87,72 @@ def test_windowed_matches_jax_and_plane_splat(rng):
     assert want.max() > 1.0
 
 
+def test_windowed_one_crowded_segment_with_zero_offsets():
+    """Most points in one (y plane, x bucket) segment, every offset 0: all
+    of a point's votes land in one cell, the case that serialized one
+    block a segment in the first design and that the whole-warp path of
+    the vote kernel serves. Against the plane splat's plain version and
+    the JAX kernel in interpret mode."""
+    rng = np.random.RandomState(3)
+    n, cap = 400, 512
+    points = np.zeros((cap, 3), np.float32)
+    # 360 points in 1.5 x 0.04 x 1.5 cells near one corner: x bucket 0,
+    # one y plane; the rest spread over the grid
+    points[:360] = (rng.rand(360, 3) * np.array([0.3, 0.002, 1.5])
+                    + np.array([0.06, 0.3, 0.5])).astype(np.float32)
+    points[360:n] = rng.rand(n - 360, 3).astype(np.float32) * np.array(
+        [1.5, 0.7, 1.5], np.float32)
+    valid = np.zeros((cap,), np.float32)
+    valid[:n] = 1.0
+    xyz = np.zeros((cap, 3), np.float32)
+    scale = np.ones((cap, 3), np.float32)
+    obj = rng.rand(cap).astype(np.float32)
+    corner, dims = _corner_dims(points, valid)
+    t = [torch.from_numpy(a) for a in (points, xyz, scale, obj, corner, dims,
+                                       valid)]
+    kw = dict(num_rots=ROTS, grid_shape=GS, valid=t[6])
+    key = window_keys(t[0], t[1], t[2], t[4], t[5], RES, grid_shape=GS,
+                      valid=t[6], **WIN)
+    assert int((key == torch.mode(key).values).sum()) >= 300
+    got = hv_splat_windowed(*t[:6], RES, **kw, **WIN).numpy()
+    plane = hv_splat_plain(*t[:6], RES, **kw).numpy()
+    np.testing.assert_allclose(got, plane, atol=1e-5, rtol=1e-6)
+    want = np.asarray(jax_windowed(
+        *[jnp.asarray(a) for a in (points, xyz, scale, obj, corner, dims)],
+        RES, num_rots=ROTS, grid_shape=GS, valid=jnp.asarray(valid),
+        interpret=True, **WIN))
+    # the JAX kernel rounds its tents to bf16: tests/test_hough_voting.py:296
+    np.testing.assert_allclose(got, want, atol=2e-2 * want.max(), rtol=2e-2)
+    assert want.max() > ROTS  # many points' 24 votes in one cell
+
+
+def test_windowed_categories_in_one_call(rng):
+    """xyz, scale and obj with a leading category axis: one call gives each
+    category's single-call grid, as hv_splat does; hough_voting_obj's
+    windowed route passes the categories in one call."""
+    points, xyz, scale, obj, valid = _scene(rng)
+    corner, dims = _corner_dims(points, valid)
+    t = [torch.from_numpy(a) for a in (points, xyz, scale, obj, corner, dims,
+                                       valid)]
+    C = 3
+    xyz_c = torch.stack([t[1] * (1.0 + 0.3 * c) for c in range(C)])
+    scale_c, obj_c = t[2].expand(C, -1, -1), torch.stack([t[3], t[3] ** 2,
+                                                          1.0 - t[3]])
+    kw = dict(num_rots=ROTS, grid_shape=GS, valid=t[6], **WIN)
+    got = hv_splat_windowed(t[0], xyz_c, scale_c, obj_c, *t[4:6], RES, **kw)
+    assert got.shape == (C,) + GS
+    for c in range(C):
+        torch.testing.assert_close(got[c], hv_splat_windowed(
+            t[0], xyz_c[c], scale_c[c], obj_c[c], *t[4:6], RES, **kw),
+            rtol=0, atol=0)
+    grids = thv.hough_voting_obj(t[0], xyz_c, scale_c, obj_c, res=RES,
+                                 num_rots=ROTS, grid_shape=GS, valid=t[6],
+                                 method="pallas_windowed")
+    torch.testing.assert_close(grids, torch.stack([hv_splat_plain(
+        t[0], xyz_c[c], scale_c[c], obj_c[c], *t[4:6], RES, num_rots=ROTS,
+        grid_shape=GS, valid=t[6]) for c in range(C)]), atol=1e-6, rtol=1e-6)
+
+
 def test_windowed_plain_drops_votes_outside_the_window(monkeypatch, rng):
     """Points keyed one bucket over lose the votes that leave their window,
     as the JAX kernel's canvas drops them: the check that catches a wrong

@@ -13,6 +13,7 @@ import torch
 
 from canonicalvoting_tpu.ops.pallas import tiled_conv as jtc
 
+from canonicalvoting_tpu_torch.data.dense_prep import MX, MY, MZ
 from canonicalvoting_tpu_torch.eval.grouped import grouped_model_config
 from canonicalvoting_tpu_torch.models import DenseMinkUNet34C
 from canonicalvoting_tpu_torch.models.dense_unet import DenseMinkUNet
@@ -85,6 +86,57 @@ def test_tiled_up2_into_is_tiled_up2_permuted(rng):
                                rtol=0, atol=0)
     torch.testing.assert_close(got[~listed], before[~listed], rtol=0, atol=0)
     assert bool(listed.any()) and bool((~listed).any())
+
+
+@pytest.mark.parametrize("cin", [128, 96], ids=["L1", "L0"])
+def test_into_at_model_widths_zeroes_junk_dest(cin):
+    """The model's into levels (cin 128 at L1, 96 at L0 -> cout 96 beside a
+    32-channel skip: 128 channels) on a dest whose conv channels hold junk
+    (7.0) everywhere, with one listed (8, 8, 32) tile of two: against the
+    JAX kernel in interpret mode, exact zeros at every listed cell whose
+    occupancy is 0 (children of live parents and of dead ones, whose 8
+    children are all unoccupied), the skip channels and the unlisted tile
+    unchanged."""
+    rng = np.random.RandomState(7)
+    fdims, cout, skip_c, ts, group = (8, 8, 64), 96, 32, (8, 8, 32), 1
+    xc, occ, fine, skip, w, scale, bias = _case(rng, fdims, cin, cout, skip_c,
+                                                40, 150)
+    tiles = _tiles(fine[fine[:, 2] < 32], fdims, ts, group)  # z < 32 listed
+    assert tiles.shape[0] == 1
+    occ_m = _margin(occ)
+    junk = np.full(occ_m.shape + (skip_c + cout,), 7.0, np.float32)
+    junk[..., :skip_c] = _margin(skip)
+    want = np.asarray(jtc.tiled_up2_into(
+        _lanes(_margin(xc)), jnp.asarray(w), jnp.asarray(tiles),
+        dest=jnp.asarray(junk), skip_c=skip_c, scale=jnp.asarray(scale),
+        bias=jnp.asarray(bias),
+        occ=jtc.pack_occ_updma(jnp.asarray(occ_m), jnp.asarray(tiles), ts,
+                               group),
+        relu_out=True, tile_shape=ts, group=group, interpret=True))
+    got = ttc.tiled_up2_into(_t(_margin(xc)), _t(w), _t(tiles),
+                             dest=_t(junk.copy()), skip_c=skip_c,
+                             tile_shape=ts, scale=_t(scale), bias=_t(bias),
+                             occ=_t(occ_m), relu_out=True).numpy()
+    np.testing.assert_allclose(got, want[..., :skip_c + cout], **TOL)
+    cells = ttc._row_cells(_t(tiles), ts)
+    flat = ttc._flat(cells, occ_m.shape).numpy()
+    rows, occ_rows = got.reshape(-1, skip_c + cout), occ_m.reshape(-1)
+    unocc = flat[occ_rows[flat] == 0]
+    assert (rows[unocc, skip_c:] == 0).all()
+    parents = np.unique(cells.numpy() // 2, axis=0)
+    children = [2 * parents + np.array([d & 1, (d >> 1) & 1, d >> 2])
+                for d in range(8)]
+    live = np.zeros(len(parents), bool)
+    for ch in children:
+        live |= occ_m[tuple((ch + np.array([MX, MY, MZ])).T)] > 0
+    assert live.any() and (~live).any()  # live and dead parents listed
+    np.testing.assert_array_equal(rows[:, :skip_c],
+                                  junk.reshape(rows.shape)[:, :skip_c])
+    listed = np.zeros(rows.shape[0], bool)
+    listed[flat] = True
+    np.testing.assert_array_equal(rows[~listed],
+                                  junk.reshape(rows.shape)[~listed])
+    assert np.abs(rows[flat[occ_rows[flat] > 0], skip_c:]).max() > 0.1
 
 
 def test_into_width_limit():

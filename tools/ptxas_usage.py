@@ -2,10 +2,12 @@
 in a CUDA source of the port, from ``nvcc -Xptxas -v`` with the port's own
 flags.
 
-    python3 tools/ptxas_usage.py [csrc name, default tiled_conv]
+    python3 tools/ptxas_usage.py [csrc name ...]
 
-Prints one JSON line per kernel (demangled where ``c++filt`` is present).
-Needs ``nvcc``: run it on the machine with the card.
+With no name, every source of the port (``tiled_conv``, ``hv_splat``).
+Prints one JSON line per kernel, with its source (demangled where
+``c++filt`` is present). Needs ``nvcc``: run it on the machine with the
+card.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from canonicalvoting_tpu_torch.ops.cuda_build import CSRC, NVCC_FLAGS, _nvcc  # noqa: E402
+from canonicalvoting_tpu_torch.ops.cuda_build import (  # noqa: E402
+    CSRC, NVCC_FLAGS, SOURCES, _nvcc)
 
 
 def demangle(names):
@@ -32,7 +35,13 @@ def demangle(names):
 
 
 def main() -> int:
-    name = sys.argv[1] if len(sys.argv) > 1 else "tiled_conv"
+    for name in sys.argv[1:] or SOURCES:
+        if usage(name):
+            return 1
+    return 0
+
+
+def usage(name: str) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
                             str(Path(tmp) / "lib.so"), str(CSRC / f"{name}.cu")],
@@ -58,7 +67,7 @@ def main() -> int:
                     cur[key] = int(m.group(1))
     for row, full in zip(rows, demangle([r["kernel"] for r in rows])):
         row["kernel"] = full
-        print(json.dumps(row))
+        print(json.dumps({"source": name, **row}))
     return 0
 
 

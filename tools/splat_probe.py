@@ -1,8 +1,10 @@
 """Measure the vote splat's pieces on one GPU, for the port in the current
-directory: the objectness splat (``hv_splat``), or with ``--channels 6`` the
-6-channel splat of the non-lazy tails (``hv_splat6``).
+directory: the objectness splat (``hv_splat``), with ``--channels 6`` the
+6-channel splat of the non-lazy tails (``hv_splat6``), or with
+``--windowed`` the windowed objectness splat of
+``hv_method="pallas_windowed"`` (``hv_splat_windowed``, 32-cell x buckets).
 
-    cd <checkout root> && python3 <path>/tools/splat_probe.py [--reps N] [--channels 6] [--heads FILE]
+    cd <checkout root> && python3 <path>/tools/splat_probe.py [--reps N] [--channels 6 | --windowed] [--heads FILE]
 
 It imports ``canonicalvoting_tpu_torch`` from the working directory and the
 workload and timers from the ``chip_smoke.py`` of the checkout that holds
@@ -48,6 +50,19 @@ points and grid):
   points or rotations fastest, the group's exact fixed-point sums of zero
   skipped;
 - ``sha1``: of each grid's bytes, to compare checkouts bit for bit.
+
+With ``--windowed``, each joint entry also has:
+
+- ``host_pieces_ms``: the host's time to issue each piece of one call,
+  each piece alone (the pieces the checkout's wrapper has: the segment
+  keys, their stable sort and the segments' ranges where it sorts; the
+  kernel arguments, the scratch's zero fill, the vote launch and the
+  conversion's launch where it does not);
+- ``window_order``: ``call_ms``, ``device_ms`` and ``sha1`` of the same
+  call on the rows sorted by their window key (``window_keys``, stable),
+  the order the TPU kernel's segments put the votes in: whether that
+  locality pays on the card. The grid's SHA-1 must equal the unsorted
+  call's (the sums are exact).
 """
 
 from __future__ import annotations
@@ -55,6 +70,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -164,6 +180,42 @@ def atomics(points, xyz, scale, obj, corner, dims, res, num_rots, valid,
     return counts, out
 
 
+def windowed_pieces(hs, cs, a, kw, reps):
+    """{piece: the host's ms to issue it} of one windowed splat call with
+    args ``a`` and keywords ``kw``, each piece alone."""
+    import torch
+
+    points, xyz, scale, obj, corner, dims, res = a
+    kk = dict(grid_shape=kw["grid_shape"], valid=kw["valid"],
+              x_bucket=kw["x_bucket"])
+    if "window" not in inspect.signature(hs._votes).parameters:
+        key = hs.window_keys(points, xyz, scale, corner, dims, res, **kk)
+        segs = torch.arange(int(key.max()) + 1, device=key.device)
+        sorted_key = torch.sort(key, stable=True)[0]
+        return {"keys": cs.host_ms(lambda: hs.window_keys(
+                    points, xyz, scale, corner, dims, res, **kk), reps),
+                "sort": cs.host_ms(lambda: torch.sort(key, stable=True), reps),
+                "ranges": cs.host_ms(lambda: (
+                    torch.searchsorted(sorted_key, segs),
+                    torch.searchsorted(sorted_key, segs + 1)), reps)}
+    shape = tuple(obj.shape[:-1]) + tuple(kw["grid_shape"]) + (1,)
+    f, v, d, tables = hs._kernel_args(points, xyz, scale, obj, corner, dims,
+                                      kw["valid"], kw["num_rots"],
+                                      kw["grid_shape"])
+    acc = torch.zeros(shape, dtype=torch.int64, device=points.device)
+    out = torch.empty(shape, dtype=torch.float32, device=points.device)
+    pad = inspect.signature(hs.hv_splat_windowed).parameters["x_pad"].default
+    return {"kernel_args": cs.host_ms(lambda: hs._kernel_args(
+                points, xyz, scale, obj, corner, dims, kw["valid"],
+                kw["num_rots"], kw["grid_shape"]), reps),
+            "scratch": cs.host_ms(lambda: torch.zeros(
+                shape, dtype=torch.int64, device=points.device), reps),
+            "votes": cs.host_ms(lambda: hs._votes(
+                acc, f, v, d, tables, res, kw["num_rots"], kw["grid_shape"],
+                1, (kw["x_bucket"], pad)), reps),
+            "convert": cs.host_ms(lambda: hs._fixed_to_float(acc, out), reps)}
+
+
 def summarize(per_cat):
     """Sums of atomics() over categories, with the shares."""
     counts = {k: sum(p[0][k] for p in per_cat) for k in per_cat[0][0]}
@@ -184,10 +236,13 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--channels", type=int, choices=(1, 6), default=1)
+    parser.add_argument("--windowed", action="store_true")
     parser.add_argument("--heads", help="the backbone head rows' file: read "
                         "where it exists, else written")
     opts = parser.parse_args()
     reps, channels = opts.reps, opts.channels
+    if opts.windowed and channels != 1:
+        parser.error("--windowed splats one channel")
     if not torch.cuda.is_available():
         print("splat_probe: no CUDA device", file=sys.stderr)
         return 2
@@ -214,30 +269,59 @@ def main() -> int:
         corners = compute_corners(a.coords_w, a.valid)
         dims = clipped_grid_dims(corners, cs.RES, a.grid_shape)
         kw = dict(num_rots=cs.NUM_ROTS, grid_shape=a.grid_shape, valid=a.valid)
+        if opts.windowed:
+            splat, kw["x_bucket"] = hs.hv_splat_windowed, 32
+        else:
+            splat = hs.hv_splat if channels == 1 else hs.hv_splat6
 
-        splat = hs.hv_splat if channels == 1 else hs.hv_splat6
-
-        def one(x, s, o):
-            return splat(a.coords_w, x, s, o, corners[0], dims, cs.RES, **kw)
+        def one(x, s, o, points=None, valid=None):
+            return splat(a.coords_w if points is None else points, x, s, o,
+                         corners[0], dims, cs.RES,
+                         **{**kw, "valid": a.valid if valid is None else valid})
 
         def counts(x, s, o):
             return atomics(a.coords_w, x, s, o, corners[0], dims, cs.RES,
                            cs.NUM_ROTS, a.valid, a.grid_shape, channels)
-        return one, counts
+
+        def pieces(x, s, o):
+            return windowed_pieces(hs, cs, (a.coords_w, x, s, o, corners[0],
+                                            dims, cs.RES), kw, reps)
+
+        def window_rows(x, s, o):
+            """points, x, s, o and valid sorted by their window key"""
+            key = hs.window_keys(a.coords_w, x, s, corners[0], dims, cs.RES,
+                                 grid_shape=a.grid_shape, valid=a.valid,
+                                 x_bucket=32)
+            rows = torch.argsort(key, stable=True)
+            return tuple(t[rows].contiguous()
+                         for t in (a.coords_w, x, s, o, a.valid))
+        return one, counts, pieces, window_rows
 
     def joint(heads):
         xyz, scale, _, prob = slice_joint_heads(heads)
         x = (xyz.contiguous(), torch.exp(scale).contiguous(), prob.contiguous())
-        one, counts = splat_of(args)
-        return {"call_ms": cs.time_ms(lambda: one(*x), reps),
-                "host_ms": cs.host_ms(lambda: one(*x), reps),
-                "device_ms": device_ms(lambda: one(*x)),
-                **summarize([counts(*x)]), "sha1": sha(one(*x))}
+        one, counts, pieces, window_rows = splat_of(args)
+        out = {"call_ms": cs.time_ms(lambda: one(*x), reps),
+               "host_ms": cs.host_ms(lambda: one(*x), reps),
+               "device_ms": device_ms(lambda: one(*x)),
+               **summarize([counts(*x)]), "sha1": sha(one(*x))}
+        if opts.windowed:
+            p, xs, ss, os_, v = window_rows(*x)
+
+            def in_window_order():
+                return one(xs, ss, os_, points=p, valid=v)
+
+            out["host_pieces_ms"] = pieces(*x)
+            out["window_order"] = {
+                "call_ms": cs.time_ms(in_window_order, reps),
+                "device_ms": device_ms(in_window_order),
+                "sha1": sha(in_window_order())}
+        return out
 
     def separate(heads):
         xyz, scale, prob = slice_separate_heads(heads)
         x = (xyz.contiguous(), torch.exp(scale).contiguous(), prob.contiguous())
-        one, counts = splat_of(sargs)
+        one, counts, _, _ = splat_of(sargs)
 
         def singles():
             return [one(x[0][c], x[1][c], x[2][c]) for c in range(C)]
@@ -263,7 +347,8 @@ def main() -> int:
                   ["nvidia-smi", "--query-gpu=name,power.limit",
                    "--format=csv,noheader"], capture_output=True, text=True,
                   timeout=60).stdout.strip(),
-              "channels": channels, "grid_shape": list(args.grid_shape),
+              "channels": channels, "windowed": opts.windowed,
+              "grid_shape": list(args.grid_shape),
               "points": int(args.valid.shape[0])}
     dev = args.coords_w.device
     report["planted"] = {
