@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernels of canonicalvoting_tpu/ops/pallas/
 // tiled_conv.py: tiled_conv3d (_kernel:85), its prefolded=True stem mode,
 // tiled_down2 (_down2_kernel), tiled_up2 (_up2_kernel:1392), tiled_up2_into
-// (_up2v2_kernel) and tiled_block3d (_block_kernel). Each computes the same
+// (_up2v2_kernel) and tiled_block3d (_block_kernel:750). Each computes the same
 // function over the same margined channel-last grids (X + 2MX, Y + 2MY,
 // Z + 2MZ, C) and the same tile lists; cells outside the listed tiles are
 // left as the caller's zeros (tiled_up2_into: as the caller's dest holds
@@ -15,8 +15,8 @@
 // grids on the card are refused by the wrappers, the plain versions serve
 // them on the CPU.
 //
-// tiled_conv3d, its prefolded stem, tiled_down2, tiled_up2 and
-// tiled_up2_into: occupied-row GEMMs (conv_rows_kernel, up_rows_kernel).
+// tiled_conv3d, its prefolded stem, tiled_down2, tiled_up2, tiled_up2_into
+// and tiled_block3d: occupied-row GEMMs (conv_rows_kernel, up_rows_kernel).
 // Their function needs the MACs of occupied rows only: an unoccupied output
 // cell is masked to zero (plus the plain residual, if any), and an
 // unoccupied coarse parent has no occupied child. The listed tiles hold
@@ -111,17 +111,37 @@
 // kernel's lane pack of the occupancy (pack_occ_updma) is a TPU layout; the
 // kernels read the margined occupancy grid.
 //
-// tiled_block3d (block_kernel, below) runs a whole BasicBlock per tile:
-// conv1 over the tile grown by one cell, kept in a per-block global scratch
-// (the grown tile's mid does not fit shared memory: 461 KB at L2), then conv2
-// over the tile from that scratch, with the residual. Its bound counts the
-// input window, output and both weights once and no mid; it runs the MACs
-// of every listed and grown cell, and conv1's grown cells are 1.3x-5x the
-// tile's at the backbone's tile shapes.
+// tiled_block3d, a whole BasicBlock (relu(occ * bn2(conv2 relu(occ *
+// bn1(conv1 x)))) + res)), is the same occupied-row GEMM twice over one
+// compaction. The TPU kernel keeps a grown tile's mid in VMEM and recomputes
+// the halo; here the whole block's mid at the live rows fits the 50 MB L2
+// (0.5-12 MB at the backbone's levels), so nothing is recomputed. conv2
+// needs conv1's output at the live rows (occupied listed cells) and zeros
+// everywhere else, as the two-conv route's dense mid grid holds it:
+// - compact_kernel lists the live rows once (the dead rows too, for the
+//   identity residual) and writes each live cell's position in the list
+//   into a row map over the margined grid, which one memset sets to -1 at
+//   every call (another level or scene sees other cells).
+// - conv1 (by_row) writes live row i's mid at mid + i * cmid: a compact,
+//   uninitialised buffer sized by the listed rows, of which only the live
+//   part is written and read. No dense mid grid is filled or written.
+// - conv2 (conv_rows_kernel<BN, true>) loads its 64 rows' 27 neighbour
+//   positions from the map into shared memory at the start of a row block;
+//   each K step then copies mid + pos * cmid + c0 by cp.async, zero-filled
+//   where pos < 0. Its epilogue (the residual read from the dense x at the
+//   row's own cell, or the fused 1x1), its K split and dead_rows_kernel are
+//   row 1's.
+// Both GEMMs take the K splits the model's two tiled_conv3d calls take, in
+// the same tap and chunk order with the same bfloat16 rounding of the mid,
+// so the block's output equals the two-conv route's bit for bit. One host
+// call issues the memsets, the compaction and both GEMMs; against the two
+// convs it saves one compaction, one host call and the dense mid grid's
+// fill and writes. Its bound counts the listed cells' input and output and
+// the weights once, no mid; its MACs are the occupied (output, tap) pairs
+// of both convs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -309,13 +329,16 @@ struct Cols {
 // rows are listed from the buffer's end (count[1] of them). Up (up = 1):
 // row r is the r-th coarse parent, live when any of its 8 children is
 // occupied. rows[0, count[0]) receives the live rows, in no fixed order.
+// With a row map (the fused block: conv, occ given), map at a live row's
+// cell in g receives the row's position in rows.
 __global__ void __launch_bounds__(256) compact_kernel(Tiles tl, Grid g, const float* occ,
                                                       int up, int n_list, int* rows,
-                                                      int* count, int want_dead) {
+                                                      int* count, int want_dead, int* map) {
   __shared__ int wl[8], wd[8], base_l, base_d;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r = blockIdx.x * 256 + tid;
   bool live = false;
+  long long cl = 0;
   const bool listed = r < n_list;
   if (listed) {
     if (occ == nullptr) {
@@ -330,7 +353,8 @@ __global__ void __launch_bounds__(256) compact_kernel(Tiles tl, Grid g, const fl
     } else {
       int ix, iy, iz;
       row_cell(tl, r, ix, iy, iz);
-      live = occ[flat(g, ix + MX, iy + MY, iz + MZ)] != 0.f;
+      cl = flat(g, ix + MX, iy + MY, iz + MZ);
+      live = occ[cl] != 0.f;
     }
   }
   const bool dead = listed && !live && want_dead;
@@ -355,8 +379,25 @@ __global__ void __launch_bounds__(256) compact_kernel(Tiles tl, Grid g, const fl
   }
   __syncthreads();
   const unsigned lt = (1u << lane) - 1;
-  if (live) rows[base_l + wl[warp] + __popc(bl & lt)] = r;
+  if (live) {
+    const int pos = base_l + wl[warp] + __popc(bl & lt);
+    rows[pos] = r;
+    if (map != nullptr) map[cl] = pos;
+  }
   if (dead) rows[n_list - 1 - (base_d + wd[warp] + __popc(bd & lt))] = r;
+}
+
+// B of K step (tap, c0): weight rows n0 .. n0 + BN of wt (cout, taps,
+// cpad), 32 channels from c0, zero-filled past cout
+template <int BN>
+__device__ __forceinline__ void load_weights(const __nv_bfloat16* wt, int cout, int taps,
+                                             int cpad, int n0, int tap, int c0, uint8_t* sb) {
+  for (int v = threadIdx.x; v < BN * (GK / 8); v += GT) {
+    const int n = v >> 2, q = v & 3, gn = n0 + n;
+    const bool ok = gn < cout;
+    cp_async16(sb + core_off(n, q, GK / 8),
+               ok ? wt + ((long long)gn * taps + tap) * cpad + c0 + q * 8 : wt, ok);
+  }
 }
 
 // One K phase of a conv block: x's taps (k^3 of them, x-fastest, offsets
@@ -398,13 +439,44 @@ struct TapLoader {
                                           (kk & 7) * 2) = val;
       }
     }
-    uint8_t* sb = st + A_STAGE;
-    for (int v = threadIdx.x; v < BN * (GK / 8); v += GT) {
-      const int n = v >> 2, q = v & 3, gn = n0 + n;
-      const bool ok = gn < cout;
-      cp_async16(sb + core_off(n, q, GK / 8),
-                 ok ? wt + ((long long)gn * taps() + tap) * cpad + c0 + q * 8 : wt, ok);
+    load_weights<BN>(wt, cout, taps(), cpad, n0, tap, c0, st + A_STAGE);
+  }
+};
+
+// conv2 of the fused block: the 27 taps (k = 3, x-fastest) of each row
+// through the row map, by 32-channel chunks of the compact mid (live row j
+// at mid + j * cmid) against wt (cout, 27, cpad)
+constexpr int MAP_TAPS = 27;
+struct MapLoader {
+  const __nv_bfloat16* mid;
+  int cmid, vec;
+  const __nv_bfloat16* wt;
+  int cpad, cout, n0;
+  const int* nbr;  // shared (MAP_TAPS, GM): the rows' neighbours' positions, -1 for none
+
+  __device__ __forceinline__ int steps() const { return MAP_TAPS * (cpad / GK); }
+
+  template <int BN>
+  __device__ __forceinline__ void load(int s, uint8_t* st) const {
+    const int nkc = cpad / GK;
+    const int tap = s / nkc, c0 = (s - tap * nkc) * GK;
+    const int* pos = nbr + tap * GM;
+    if (vec) {
+      for (int v = threadIdx.x; v < GM * (GK / 8); v += GT) {
+        const int m = v >> 2, q = v & 3, c = c0 + q * 8, j = pos[m];
+        const bool ok = j >= 0 && c < cmid;
+        cp_async16(st + core_off(m, q, GK / 8), ok ? mid + (long long)j * cmid + c : mid, ok);
+      }
+    } else {  // element loads (cmid not a multiple of 8)
+      for (int e = threadIdx.x; e < GM * GK; e += GT) {
+        const int m = e / GK, kk = e % GK, c = c0 + kk, j = pos[m];
+        __nv_bfloat16 val = __float2bfloat16(0.f);
+        if (j >= 0 && c < cmid) val = mid[(long long)j * cmid + c];
+        *reinterpret_cast<__nv_bfloat16*>(st + core_off(m, kk >> 3, GK / 8) +
+                                          (kk & 7) * 2) = val;
+      }
     }
+    load_weights<BN>(wt, cout, MAP_TAPS, cpad, n0, tap, c0, st + A_STAGE);
   }
 };
 
@@ -413,8 +485,8 @@ struct TapLoader {
 // async proxy, barrier (so the slot read by the previous step is free for
 // every warp), issue the copies STAGES - 1 steps ahead, then the wgmmas on
 // this slice.
-template <int BN>
-__device__ __forceinline__ void ring_gemm(const TapLoader& ld, int first, int steps,
+template <int BN, class Loader>
+__device__ __forceinline__ void ring_gemm(const Loader& ld, int first, int steps,
                                           uint8_t* ring,
                                           float (&acc)[Cols<BN>::NH][Cols<BN>::NW / 2]) {
   constexpr int NW = Cols<BN>::NW, NH = Cols<BN>::NH;
@@ -482,6 +554,8 @@ struct ConvRows {
   int s_max;      // most K splits part holds (1: none)
   int n_list;     // listed rows, part's row count
   int target;     // work items that fill the card: 2 x the SM count
+  int by_row;       // the fused block's conv1: live row i's output at out + i * cout
+  const int* map;   // the fused block's conv2 (MAP): the row map over g; x is the mid
 };
 
 // K splits of one call, worked out on the card from the live rows alone:
@@ -503,7 +577,8 @@ __host__ __device__ constexpr int conv_stage_bytes() {  // the fused 1x1's resul
   return GM * (BN + 4) * 4;
 }
 
-template <int BN>
+// MAP: conv2 of the fused block, its taps through the row map (MapLoader)
+template <int BN, bool MAP>
 __global__ void __launch_bounds__(GT, 1) conv_rows_kernel(const __grid_constant__ ConvRows p) {
   constexpr int NW = Cols<BN>::NW, NH = Cols<BN>::NH, LD = BN + 4;
   static_assert(conv_ring_bytes<BN>() >= GM * LD * 4, "the staging tile aliases the ring");
@@ -512,18 +587,20 @@ __global__ void __launch_bounds__(GT, 1) conv_rows_kernel(const __grid_constant_
   float* cs = reinterpret_cast<float*>(smem);  // epilogue staging, once the ring drains
   float* rs = reinterpret_cast<float*>(smem + conv_ring_bytes<BN>());
   __shared__ int cell[GM];   // the row's tap base in gin (the down: fine cell 2o)
-  __shared__ int ocell[GM];  // the row's own cell in g, -1 past the live rows
+  __shared__ int ocell[GM];  // the row's cell in g (by_row: its place), -1 past the live rows
   __shared__ float orow[GM];
+  __shared__ int nbr[MAP ? MAP_TAPS * GM : 1];  // MAP: (tap, row) positions in the mid
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n0 = blockIdx.y * BN;
   const int n_live = p.count[0];
   const TapLoader main_ld{p.x, p.cin, p.k, p.xonly, p.down, p.vec_a, p.gin, p.wt, p.cpad,
                           p.cout, n0, cell};
+  const MapLoader map_ld{p.x, p.cin, p.vec_a, p.wt, p.cpad, p.cout, n0, nbr};
   const TapLoader res_ld{p.res, p.cres, 1, 0, 0, p.vec_r, p.g, p.rwt, p.crpad, p.cout, n0,
                          ocell};
   float acc[NH][NW / 2];
   const int n_split = k_splits(p, n_live, gridDim.y);
-  const int steps = main_ld.steps();
+  const int steps = MAP ? map_ld.steps() : main_ld.steps();
 
   // work item = (row block rb, K split sp); with one split the block also
   // runs the epilogue, with more split_reduce_kernel sums the splits
@@ -541,8 +618,15 @@ __global__ void __launch_bounds__(GT, 1) conv_rows_kernel(const __grid_constant_
         if (p.occ != nullptr) o = p.occ[oc];
       }
       cell[tid] = c;
-      ocell[tid] = oc;
+      ocell[tid] = p.by_row && oc >= 0 ? i : oc;
       orow[tid] = o;
+      if constexpr (MAP) {  // tap t = dx + 3 dy + 9 dz at offset (d - 1) from the cell
+#pragma unroll
+        for (int t = 0; t < MAP_TAPS; ++t) {
+          const int off = ((t % 3 - 1) * p.g.ym + (t / 3 % 3 - 1)) * p.g.zm + t / 9 - 1;
+          nbr[t * GM + tid] = oc < 0 ? -1 : p.map[oc + off];
+        }
+      }
     }
     __syncthreads();
     if (p.rwt != nullptr && sp == 0) {  // the fused 1x1: occ * (res @ rw * rscale + rbias)
@@ -567,7 +651,10 @@ __global__ void __launch_bounds__(GT, 1) conv_rows_kernel(const __grid_constant_
     }
     const int k0 = (int)((long long)steps * sp / n_split);
     const int k1 = (int)((long long)steps * (sp + 1) / n_split);
-    ring_gemm<BN>(main_ld, k0, k1 - k0, ring, acc);
+    if constexpr (MAP)
+      ring_gemm<BN>(map_ld, k0, k1 - k0, ring, acc);
+    else
+      ring_gemm<BN>(main_ld, k0, k1 - k0, ring, acc);
     if (n_split > 1) {  // this split's raw sums
 #pragma unroll
       for (int hh = 0; hh < NH; ++hh)
@@ -635,7 +722,8 @@ __global__ void __launch_bounds__(GT, 1) conv_rows_kernel(const __grid_constant_
 }
 
 // the split sums of each live row in split order, then the epilogue:
-// affine, mask, residual (plain, or the fused 1x1's slice), ReLU
+// affine, mask, residual (plain, or the fused 1x1's slice), ReLU; stored at
+// the row's cell (by_row: at its place in the row list)
 __global__ void __launch_bounds__(256) split_reduce_kernel(const __grid_constant__ ConvRows p,
                                                            int col_blocks) {
   const int n_live = p.count[0];
@@ -649,6 +737,7 @@ __global__ void __launch_bounds__(256) split_reduce_kernel(const __grid_constant
     int ix, iy, iz;
     row_cell(p.tl, p.rows[i], ix, iy, iz);
     const long long cl = flat(p.g, ix + MX, iy + MY, iz + MZ);
+    const long long ol = (p.by_row ? i : cl) * p.cout + c0;
     const float o = p.occ != nullptr ? p.occ[cl] : 1.f;
     float v[8];
     uint4 rv = make_uint4(0, 0, 0, 0);  // the plain residual's channels
@@ -672,9 +761,9 @@ __global__ void __launch_bounds__(256) split_reduce_kernel(const __grid_constant
       __nv_bfloat16* pb = reinterpret_cast<__nv_bfloat16*>(&packed);
 #pragma unroll
       for (int t = 0; t < 8; ++t) pb[t] = __float2bfloat16(v[t]);
-      *reinterpret_cast<uint4*>(p.out + cl * p.cout + c0) = packed;
+      *reinterpret_cast<uint4*>(p.out + ol) = packed;
     } else {
-      p.out[cl * p.cout + c0] = __float2bfloat16(v[0]);
+      p.out[ol] = __float2bfloat16(v[0]);
     }
   }
 }
@@ -941,14 +1030,14 @@ int blocks_for(long long work, int per_block) {
   return static_cast<int>(b < MAX_GRID ? (b > 0 ? b : 1) : MAX_GRID);
 }
 
-template <int BN>
+template <int BN, bool MAP>
 cudaError_t launch_conv_rows(const ConvRows& p, int n_list, cudaStream_t s) {
   const int smem = conv_ring_bytes<BN>() + (p.rwt != nullptr ? conv_stage_bytes<BN>() : 0);
-  cudaError_t e = cudaFuncSetAttribute(conv_rows_kernel<BN>,
+  cudaError_t e = cudaFuncSetAttribute(conv_rows_kernel<BN, MAP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(blocks_for((long long)n_list * p.s_max, GM), (p.cout + BN - 1) / BN);
-  conv_rows_kernel<BN><<<grid, GT, smem, s>>>(p);
+  conv_rows_kernel<BN, MAP><<<grid, GT, smem, s>>>(p);
   if (p.s_max > 1)
     split_reduce_kernel<<<blocks_for((long long)n_list * p.cout / 8, 256), 256, 0, s>>>(
         p, static_cast<int>(grid.y));
@@ -981,205 +1070,14 @@ int block_cols(int cout) {
 
 // conv_rows_kernel (and its K-split reduction) at the narrowest block width
 // that holds cout
+template <bool MAP = false>
 cudaError_t launch_conv_cols(const ConvRows& p, int n_list, cudaStream_t s) {
   switch (block_cols(p.cout)) {
-    case 32: return launch_conv_rows<32>(p, n_list, s);
-    case 64: return launch_conv_rows<64>(p, n_list, s);
-    case 96: return launch_conv_rows<96>(p, n_list, s);
-    case 128: return launch_conv_rows<128>(p, n_list, s);
-    default: return launch_conv_rows<256>(p, n_list, s);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The fused BasicBlock (block_kernel). One block owns one listed tile at a
-// time, looping over the list with a stride of the grid. conv1 runs over the
-// tile grown by one cell on each side (its BN, mask and ReLU applied) into the
-// block's own slice of a global scratch, in bfloat16 as the two-conv path
-// rounds it; conv2 then reads its taps from that slice, adds the residual (the
-// input's own channels, or the fused 1x1 downsample GEMM) and writes the tile.
-// Both are a WMMA GEMM (conv_gemm), row blocks of 64 cells. The scratch is
-// written and read inside one kernel, so it is read through plain loads (no
-// __restrict__, which could route them through the non-coherent read-only
-// cache); __syncthreads orders the writes of one phase before the reads of the
-// next.
-
-// the WMMA tiles: 64 rows x 64 columns a block of 4 warps, K in 32-wide
-// slices, shared-memory rows padded against bank conflicts
-constexpr int TM = 64, TN = 64, TK = 32, TT = 128;
-constexpr int LDA = TK + 8, LDB = TN + 8, LDC = TN + 4;
-
-using Frag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-
-// element offset of reduction index kg = tap * cin + c from a row's tap-0 input
-__device__ __forceinline__ long long tap_offset(int kg, int cin, int k, Grid g) {
-  const int tap = kg / cin, c = kg - tap * cin;
-  const int dx = tap % k, dy = (tap / k) % k, dz = tap / (k * k);
-  return ((long long)dx * g.ym + dy) * g.zm * cin + (long long)dz * cin + c;
-}
-
-// acc += A x W[:, n0 : n0 + TN] over K = k^3 * cin, where row m of A reads
-// src[a_base[m] + tap_offset(kg)] (zeros where a_base[m] < 0); a_base lives in
-// shared memory and is complete before the call
-__device__ __forceinline__ void conv_gemm(const __nv_bfloat16* src, int cin, Grid g, int k,
-                                          const long long* a_base, const __nv_bfloat16* w,
-                                          int cout, int n0, int vec_a, int vec_b,
-                                          __nv_bfloat16* As, __nv_bfloat16* Bs,
-                                          Frag (&acc)[4]) {
-  namespace wm = nvcuda::wmma;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int K = k * k * k * cin;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    if (vec_a) {
-      for (int v = tid; v < TM * TK / 8; v += TT) {
-        const int m = v / (TK / 8), kq = (v % (TK / 8)) * 8, kg = k0 + kq;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (a_base[m] >= 0 && kg < K)
-          val = *reinterpret_cast<const uint4*>(src + a_base[m] + tap_offset(kg, cin, k, g));
-        *reinterpret_cast<uint4*>(As + m * LDA + kq) = val;
-      }
-    } else {
-      for (int e = tid; e < TM * TK; e += TT) {
-        const int m = e / TK, kq = e % TK, kg = k0 + kq;
-        As[m * LDA + kq] = (a_base[m] >= 0 && kg < K)
-                               ? src[a_base[m] + tap_offset(kg, cin, k, g)] : zero;
-      }
-    }
-    if (vec_b) {
-      for (int v = tid; v < TK * TN / 8; v += TT) {
-        const int kk = v / (TN / 8), nq = (v % (TN / 8)) * 8;
-        const int kg = k0 + kk, n = n0 + nq;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (kg < K && n < cout)
-          val = *reinterpret_cast<const uint4*>(w + (long long)kg * cout + n);
-        *reinterpret_cast<uint4*>(Bs + kk * LDB + nq) = val;
-      }
-    } else {
-      for (int e = tid; e < TK * TN; e += TT) {
-        const int kk = e / TN, nq = e % TN, kg = k0 + kk, n = n0 + nq;
-        Bs[kk * LDB + nq] = (kg < K && n < cout) ? w[(long long)kg * cout + n] : zero;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, __nv_bfloat16, wm::row_major> a;
-      wm::load_matrix_sync(a, As + warp * 16 * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wm::fragment<wm::matrix_b, 16, 16, 16, __nv_bfloat16, wm::row_major> b;
-        wm::load_matrix_sync(b, Bs + kk * LDB + j * 16, LDB);
-        wm::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ void gemm_to(float* C, int vec_a, int vec_b,
-                                        const __nv_bfloat16* src, int cin, Grid g, int k,
-                                        const long long* a_base, const __nv_bfloat16* w,
-                                        int cout, int n0, __nv_bfloat16* As,
-                                        __nv_bfloat16* Bs) {
-  namespace wm = nvcuda::wmma;
-  Frag acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wm::fill_fragment(acc[j], 0.f);
-  conv_gemm(src, cin, g, k, a_base, w, cout, n0, vec_a, vec_b, As, Bs, acc);
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wm::store_matrix_sync(C + warp * 16 * LDC + j * 16, acc[j], LDC, wm::mem_row_major);
-}
-
-__global__ void __launch_bounds__(TT) block_kernel(
-    const __nv_bfloat16* __restrict__ x, int cin, Grid g, const __nv_bfloat16* __restrict__ w1,
-    const __nv_bfloat16* __restrict__ w2, int cmid, int cout, const int* __restrict__ tiles,
-    int n_tiles, int tx, int ty, int tz, const float* __restrict__ scale1,
-    const float* __restrict__ bias1, const float* __restrict__ scale2,
-    const float* __restrict__ bias2, const float* __restrict__ occ,
-    const __nv_bfloat16* __restrict__ rw, const float* __restrict__ rscale,
-    const float* __restrict__ rbias, int vec_x, int vec_m, int vec_w1, int vec_w2,
-    __nv_bfloat16* mid, __nv_bfloat16* __restrict__ out) {
-  __shared__ __align__(128) __nv_bfloat16 As[TM * LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[TK * LDB];
-  __shared__ __align__(128) float Cs[TM * LDC];
-  __shared__ __align__(128) float Rs[TM * LDC];
-  __shared__ long long a_base[TM];  // tap-0 input of the row (x or the scratch)
-  __shared__ long long r_base[TM];  // the row's own input cell (1x1 downsample)
-  __shared__ long long o_cell[TM];  // the row's cell in the margined grid
-  const int tid = threadIdx.x;
-  const int ex = tx + 2, ey = ty + 2, ez = tz + 2;
-  const int ne = ex * ey * ez, nc = tx * ty * tz;
-  const Grid ge{ex, ey, ez};
-  __nv_bfloat16* ms = mid + (long long)blockIdx.x * ne * cmid;
-
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int ox = tiles[3 * t] * tx, oy = tiles[3 * t + 1] * ty, oz = tiles[3 * t + 2] * tz;
-    // conv1 -> BN -> mask -> ReLU over the grown tile: expanded cell (lx, ly,
-    // lz) is interior cell (ox + lx - 1, ...); the margins absorb the reads
-    for (int r0 = 0; r0 < ne; r0 += TM) {
-      if (tid < TM) {
-        const int r = r0 + tid;
-        long long base = -1, oc = -1;
-        if (r < ne) {
-          const int lx = r / (ey * ez), ly = (r / ez) % ey, lz = r % ez;
-          oc = flat(g, ox + lx - 1 + MX, oy + ly - 1 + MY, oz + lz - 1 + MZ);
-          base = flat(g, ox + lx - 2 + MX, oy + ly - 2 + MY, oz + lz - 2 + MZ) * cin;
-        }
-        a_base[tid] = base;
-        o_cell[tid] = oc;
-      }
-      __syncthreads();
-      for (int n0 = 0; n0 < cmid; n0 += TN) {
-        gemm_to(Cs, vec_x, vec_w1, x, cin, g, 3, a_base, w1, cmid, n0, As, Bs);
-        __syncthreads();
-        for (int e = tid; e < TM * TN; e += TT) {
-          const int m = e / TN, n = n0 + e % TN;
-          if (r0 + m >= ne || n >= cmid) continue;
-          float v = Cs[m * LDC + e % TN] * scale1[n] + bias1[n];
-          v = fmaxf(v * occ[o_cell[m]], 0.f);
-          ms[(long long)(r0 + m) * cmid + n] = __float2bfloat16(v);
-        }
-        __syncthreads();
-      }
-    }
-    // conv2 -> BN -> mask -> + residual -> ReLU over the tile: core cell (lx,
-    // ly, lz) reads its taps from expanded cells (lx + dx, ly + dy, lz + dz)
-    for (int r0 = 0; r0 < nc; r0 += TM) {
-      if (tid < TM) {
-        const int r = r0 + tid;
-        long long base = -1, rbase = -1, oc = -1;
-        if (r < nc) {
-          const int lx = r / (ty * tz), ly = (r / tz) % ty, lz = r % tz;
-          base = flat(ge, lx, ly, lz) * cmid;
-          oc = flat(g, ox + lx + MX, oy + ly + MY, oz + lz + MZ);
-          rbase = oc * cin;
-        }
-        a_base[tid] = base;
-        r_base[tid] = rbase;
-        o_cell[tid] = oc;
-      }
-      __syncthreads();
-      for (int n0 = 0; n0 < cout; n0 += TN) {
-        gemm_to(Cs, vec_m, vec_w2, ms, cmid, ge, 3, a_base, w2, cout, n0, As, Bs);
-        if (rw != nullptr)
-          gemm_to(Rs, vec_x, vec_w2, x, cin, g, 1, r_base, rw, cout, n0, As, Bs);
-        __syncthreads();
-        for (int e = tid; e < TM * TN; e += TT) {
-          const int m = e / TN, n = n0 + e % TN;
-          if (o_cell[m] < 0 || n >= cout) continue;
-          const long long oc = o_cell[m];
-          const float o = occ[oc];
-          float v = (Cs[m * LDC + e % TN] * scale2[n] + bias2[n]) * o;
-          const float rv = rw != nullptr ? (Rs[m * LDC + e % TN] * rscale[n] + rbias[n]) * o
-                                         : __bfloat162float(x[oc * cin + n]);
-          out[oc * cout + n] = __float2bfloat16(fmaxf(v + rv, 0.f));
-        }
-        __syncthreads();
-      }
-    }
+    case 32: return launch_conv_rows<32, MAP>(p, n_list, s);
+    case 64: return launch_conv_rows<64, MAP>(p, n_list, s);
+    case 96: return launch_conv_rows<96, MAP>(p, n_list, s);
+    case 128: return launch_conv_rows<128, MAP>(p, n_list, s);
+    default: return launch_conv_rows<256, MAP>(p, n_list, s);
   }
 }
 
@@ -1190,7 +1088,7 @@ cudaError_t launch_up(UpRows p, int n_par, int* rows, int want_dead, cudaStream_
   int* count = rows + n_par;
   cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
   compact_kernel<<<(n_par + 255) / 256, 256, 0, s>>>(p.tl, p.gout, p.occ, 1, n_par, rows,
-                                                     count, want_dead);
+                                                     count, want_dead, nullptr);
   p.rows = rows;
   p.count = count;
   switch (block_cols(p.cout)) {
@@ -1226,7 +1124,7 @@ extern "C" int tiled_conv3d_launch(
   const int want_dead = occ != nullptr && res != nullptr && rwt == nullptr;
   cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
   compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(tl, g, occ, 0, n_rows, rows, count,
-                                                      want_dead);
+                                                      want_dead, nullptr);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* rb = static_cast<const __nv_bfloat16*>(res);
   auto* ob = static_cast<__nv_bfloat16*>(out);
@@ -1262,7 +1160,8 @@ extern "C" int tiled_conv3d_prefolded_launch(
   const Tiles tl{tiles, n_rows, tx, ty, tz};
   int* count = rows + n_rows;
   cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
-  compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(tl, g, occ, 0, n_rows, rows, count, 0);
+  compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(tl, g, occ, 0, n_rows, rows, count, 0,
+                                                      nullptr);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   const ConvRows p{static_cast<const __nv_bfloat16*>(x), cf, cpad, k, 1, 0, g, g,
                    static_cast<const __nv_bfloat16*>(wt), cout, tl, rows, count, scale, bias,
@@ -1290,7 +1189,8 @@ extern "C" int tiled_down2_launch(
   const Tiles tl{tiles, n_rows, tx, ty, tz};
   int* count = rows + n_rows;
   cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
-  compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(tl, go, occ, 0, n_rows, rows, count, 0);
+  compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(tl, go, occ, 0, n_rows, rows, count, 0,
+                                                      nullptr);
   const ConvRows p{static_cast<const __nv_bfloat16*>(x), cin, cpad, 2, 0, 1, gi, go,
                    static_cast<const __nv_bfloat16*>(wt), cout, tl, rows, count, scale, bias,
                    occ, nullptr, 0, 0, nullptr, nullptr, nullptr, relu,
@@ -1361,27 +1261,58 @@ extern "C" int tiled_up2_into_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (xm, ym, zm, cin); w1 (27, cin, cmid), w2 (27, cmid, cout), rw (cin,
-// cout) or null for the identity residual (cin == cout); mid: n_ctas * (tx +
-// 2)(ty + 2)(tz + 2) * cmid bfloat16 scratch; out: (xm, ym, zm, cout), zeros
-// outside the listed tiles
+// x: (xm, ym, zm, cin); w1t (cmid, 27, cpad1) and w2t (cout, 27, cpad2)
+// K-major, cpad = cin or cmid rounded up to 32; rwt (cout, crpad) for the
+// fused 1x1, or null for the identity residual (cin == cout); occ: the
+// margined occupancy; rows: int32 scratch of n_rows + 2; map: int32 scratch
+// of xm * ym * zm (the row map, rewritten here); mid: bfloat16 scratch of
+// n_rows * cmid; part: float32 scratch for the K splits of both GEMMs, up to
+// s_max1 (conv1) and s_max2 (conv2, plus the fused 1x1's slice), as
+// tiled_conv3d_launch takes them; out: (xm, ym, zm, cout), the caller's
+// zeros outside the occupied listed cells (and the identity residual's
+// unoccupied ones)
 extern "C" int tiled_block3d_launch(
-    const void* x, int cin, int xm, int ym, int zm, const void* w1, const void* w2,
-    int cmid, int cout, const int* tiles, int n_tiles, int tx, int ty, int tz,
-    const float* scale1, const float* bias1, const float* scale2, const float* bias2,
-    const float* occ, const void* rw, const float* rscale, const float* rbias,
-    void* mid, int n_ctas, void* out, void* stream) {
+    const void* x, int cin, int xm, int ym, int zm, const void* w1t, int cpad1,
+    const void* w2t, int cpad2, int cmid, int cout, const int* tiles, int n_rows, int tx,
+    int ty, int tz, const float* scale1, const float* bias1, const float* scale2,
+    const float* bias2, const float* occ, const void* rwt, int crpad, const float* rscale,
+    const float* rbias, int* rows, int* map, void* mid, void* out, float* part, int s_max1,
+    int s_max2, void* stream) {
+  if (n_rows <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Grid g{xm, ym, zm};
-  const int vec_x = cin % 8 == 0 && aligned16(x);
-  const int vec_m = cmid % 8 == 0 && aligned16(mid);
-  const int vec_w1 = cmid % 8 == 0 && aligned16(w1);
-  const int vec_w2 = cout % 8 == 0 && aligned16(w2) && (rw == nullptr || aligned16(rw));
-  if (n_tiles > 0 && n_ctas > 0)
-    block_kernel<<<n_ctas, TT, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(x), cin, g,
-        static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(w2), cmid,
-        cout, tiles, n_tiles, tx, ty, tz, scale1, bias1, scale2, bias2, occ,
-        static_cast<const __nv_bfloat16*>(rw), rscale, rbias, vec_x, vec_m, vec_w1, vec_w2,
-        static_cast<__nv_bfloat16*>(mid), static_cast<__nv_bfloat16*>(out));
+  const Tiles tl{tiles, n_rows, tx, ty, tz};
+  int* count = rows + n_rows;
+  const int want_dead = rwt == nullptr;
+  cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
+  cudaMemsetAsync(map, 0xff, (size_t)xm * ym * zm * sizeof(int), s);
+  compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(tl, g, occ, 0, n_rows, rows, count,
+                                                      want_dead, map);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* mb = static_cast<__nv_bfloat16*>(mid);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  const int target = 2 * sm_count();
+  ConvRows p1{xb, cin, cpad1, 3, 0, 0, g, g, static_cast<const __nv_bfloat16*>(w1t), cmid,
+              tl, rows, count, scale1, bias1, occ, nullptr, 0, 0, nullptr, nullptr, nullptr,
+              1, cin % 8 == 0 && aligned16(x), 0, cmid % 8 == 0 && aligned16(mid), mb, part,
+              s_max1, n_rows, target};
+  p1.by_row = 1;
+  cudaError_t e = launch_conv_cols(p1, n_rows, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ConvRows p2{mb, cmid, cpad2, 3, 0, 0, g, g, static_cast<const __nv_bfloat16*>(w2t), cout,
+              tl, rows, count, scale2, bias2, occ, xb, cin, crpad,
+              static_cast<const __nv_bfloat16*>(rwt), rscale, rbias, 1,
+              cmid % 8 == 0 && aligned16(mid),
+              rwt != nullptr && cin % 8 == 0 && aligned16(x),
+              cout % 8 == 0 && aligned16(out) && (rwt != nullptr || aligned16(x)), ob, part,
+              s_max2, n_rows, target};
+  p2.map = map;
+  e = launch_conv_cols<true>(p2, n_rows, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (want_dead) {
+    const int vec = cout % 8 == 0 && aligned16(x) && aligned16(out);
+    dead_rows_kernel<<<blocks_for((long long)n_rows * (vec ? cout / 8 : cout), 256), 256, 0,
+                       s>>>(tl, g, rows, count, n_rows, xb, cout, 1, vec, ob);
+  }
   return static_cast<int>(cudaGetLastError());
 }

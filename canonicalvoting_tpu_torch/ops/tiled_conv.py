@@ -54,17 +54,14 @@ _ARGTYPES = {
     "tiled_up2_into_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I,
                               _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                               _P],
-    "tiled_block3d_launch": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
-                             _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _P, _P],
+    "tiled_block3d_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P,
+                             _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                             _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 _launcher = functools.partial(launcher, "tiled_conv", _ARGTYPES)
 # the JAX kernel keeps one parity of [skip | conv] in one 128-lane block
 # (tiled_conv.py:2013); the port keeps its limit
 UP_INTO_MAX_CHANNELS = 128
-# blocks of the fused BasicBlock kernel: each loops over the tile list and
-# owns one grown tile's conv1 scratch
-BLOCK_CTAS = 528
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -128,6 +125,11 @@ MAX_SPLITS = 8
 SPLIT_BYTES = 128 << 20
 
 
+def _cpad(cin: int) -> int:
+    """Input channels rounded up to a whole number of K steps."""
+    return -(-cin // K_CHUNK) * K_CHUNK
+
+
 def _k_major(w: torch.Tensor, dtype: torch.dtype, device,
              parities: bool = False):
     """(taps, Cin, Cout) weights -> K-major rows in ``dtype`` on ``device``
@@ -135,7 +137,7 @@ def _k_major(w: torch.Tensor, dtype: torch.dtype, device,
     (Cout, taps, Cpad) for a conv, or (8, Cout, Cpad) with ``parities`` for
     the up. One copy casts and transposes. Returns (rows, Cpad)."""
     taps, cin, cout = w.shape
-    cpad = -(-cin // K_CHUNK) * K_CHUNK
+    cpad = _cpad(cin)
     shape, src = (((taps, cout, cpad), w.permute(0, 2, 1)) if parities
                   else ((cout, taps, cpad), w.permute(2, 0, 1)))
     rows = (torch.empty if cpad == cin else torch.zeros)(
@@ -144,16 +146,35 @@ def _k_major(w: torch.Tensor, dtype: torch.dtype, device,
     return rows, cpad
 
 
+def _max_splits(steps: int, n_rows: int, cout: int, extra: int) -> int:
+    """The most K splits an occupied-row conv call may take: at most one a
+    K step, their float32 sums and ``extra`` more (n_rows, cout) slices
+    (the fused 1x1's result) within SPLIT_BYTES."""
+    return max(1, min(MAX_SPLITS, steps,
+                      SPLIT_BYTES // max(1, 4 * n_rows * cout) - extra))
+
+
 def _split_scratch(steps: int, n_rows: int, cout: int, extra: int, device):
-    """(s_max, part) of an occupied-row conv call: the most K splits the
-    kernel may take (at most one a K step) and their float32 scratch, with
-    ``extra`` more (n_rows, cout) slices (the fused 1x1's result); no
-    scratch with one split."""
-    s_max = max(1, min(MAX_SPLITS, steps,
-                       SPLIT_BYTES // max(1, 4 * n_rows * cout) - extra))
+    """(s_max, part) of an occupied-row conv call: :func:`_max_splits` and
+    their float32 scratch; no scratch with one split."""
+    s_max = _max_splits(steps, n_rows, cout, extra)
     part = None if s_max == 1 else torch.empty(
         (s_max + extra) * n_rows * cout, dtype=torch.float32, device=device)
     return s_max, part
+
+
+def _block_splits(cin: int, mid: int, cout: int, fused: bool, n_rows: int,
+                  device):
+    """(s1, s2, part) of a fused block call: the most K splits of its conv1
+    and conv2, as the model's two tiled_conv3d calls take them (so the
+    block sums in their order), and one float32 scratch that both use in
+    turn; no scratch when neither splits."""
+    s1 = _max_splits(27 * _cpad(cin) // K_CHUNK, n_rows, mid, 0)
+    s2 = _max_splits(27 * _cpad(mid) // K_CHUNK, n_rows, cout, int(fused))
+    size = max(s1 * mid if s1 > 1 else 0,
+               (s2 + int(fused)) * cout if s2 > 1 else 0) * n_rows
+    part = torch.empty(size, dtype=torch.float32, device=device) if size else None
+    return s1, s2, part
 
 
 def _check_tiles(tiles: torch.Tensor, x: torch.Tensor, dims, tile_shape) -> None:
@@ -480,7 +501,7 @@ def tiled_conv3d_prefolded(xf: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"weights {tuple(w.shape)} do not fit a k={k} fold "
                          f"of {tuple(xf.shape)}")
     cout, cf = w.shape[2], xf.shape[3]
-    cpad = -(-cf // K_CHUNK) * K_CHUNK
+    cpad = _cpad(cf)
     if wt is not None and (tuple(wt.shape) != (cout, k, cpad)
                            or wt.device != xf.device):
         raise ValueError(f"wt {tuple(wt.shape)} on {wt.device} is not the "
@@ -526,7 +547,7 @@ def tiled_down2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
     _check_grid(x, "x")
     if w.shape[:2] != (8, x.shape[3]):
         raise ValueError(f"weights {tuple(w.shape)} do not fit x {tuple(x.shape)}")
-    cout, cpad = w.shape[2], -(-x.shape[3] // K_CHUNK) * K_CHUNK
+    cout, cpad = w.shape[2], _cpad(x.shape[3])
     if wt is not None and (tuple(wt.shape) != (cout, 8, cpad)
                            or wt.dtype != x.dtype or wt.device != x.device
                            or not wt.is_contiguous()):
@@ -682,8 +703,11 @@ def tiled_block3d(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     ``w1`` (27, Cin, Mid), ``w2`` (27, Mid, Cout). Returns a new grid of x's
     shape with Cout channels, zeros outside the listed tiles. Counterpart of
     the JAX package's ``tiled_block3d`` (``ops/pallas/tiled_conv.py:977``),
-    reading the margined occupancy grid instead of its expanded lane pack;
-    the margins (MX = MY = 2) absorb the two-cell halo."""
+    reading the margined occupancy grid instead of its expanded lane pack.
+    On the card it is row 1's occupied-row GEMM twice over one compaction:
+    conv1 writes the live rows' mid into a compact buffer, conv2 gathers
+    its taps from it through a row map over the grid, so its output equals
+    the two tiled_conv3d calls of ``BasicBlock.forward`` bit for bit."""
     _check_grid(x, "x")
     cin, mid, cout = x.shape[3], w1.shape[2], w2.shape[2]
     if w1.shape[:2] != (27, cin) or w2.shape[:2] != (27, mid):
@@ -704,20 +728,25 @@ def tiled_block3d(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
               res_bias=res_bias)
     if _route(x) == "plain":
         return tiled_block3d_plain(x, w1, w2, tiles, **kw)
+    _check_cells(x.shape)
     dev = x.device
-    tx, ty, tz = tile_shape
-    n_ctas = min(int(tiles.shape[0]), BLOCK_CTAS)
-    scratch = torch.empty(n_ctas * (tx + 2) * (ty + 2) * (tz + 2) * mid,
-                          dtype=x.dtype, device=dev)
     out = torch.zeros(x.shape[:3] + (cout,), dtype=x.dtype, device=dev)
-    w1f, w2f, rw = _like(w1, x), _like(w2, x), _like(res_w, x)
+    w1t, cpad1 = _k_major(w1, x.dtype, dev)
+    w2t, cpad2 = _k_major(w2, x.dtype, dev)
+    rwt, crpad = (None, 0) if res_w is None else _k_major(res_w[None], x.dtype, dev)
     f = [_f32(t, dev) for t in (scale1, bias1, scale2, bias2, occ, res_scale,
                                 res_bias)]
+    n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
+    rows = torch.empty(n_rows + 2, dtype=torch.int32, device=dev)
+    row_map = torch.empty(x.shape[:3], dtype=torch.int32, device=dev)
+    mid_rows = torch.empty(n_rows * mid, dtype=x.dtype, device=dev)
+    s1, s2, part = _block_splits(cin, mid, cout, res_w is not None, n_rows, dev)
     rc = _launcher("tiled_block3d_launch")(
-        x.data_ptr(), cin, *x.shape[:3], w1f.data_ptr(), w2f.data_ptr(), mid,
-        cout, tiles.data_ptr(), tiles.shape[0], *tile_shape,
-        *[_ptr(t) for t in f[:5]], _ptr(rw), _ptr(f[5]), _ptr(f[6]),
-        scratch.data_ptr(), n_ctas, out.data_ptr(), _stream())
+        x.data_ptr(), cin, *x.shape[:3], w1t.data_ptr(), cpad1, w2t.data_ptr(),
+        cpad2, mid, cout, tiles.data_ptr(), n_rows, *tile_shape,
+        *[_ptr(t) for t in f[:5]], _ptr(rwt), crpad, _ptr(f[5]), _ptr(f[6]),
+        rows.data_ptr(), row_map.data_ptr(), mid_rows.data_ptr(),
+        out.data_ptr(), _ptr(part), s1, s2, _stream())
     check(rc, "tiled_block3d")
     tiled_block3d.launches += 1
     return out

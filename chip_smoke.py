@@ -38,9 +38,13 @@ path's nine categories) bitwise equal to the objectness splat on the
 planted head rows and on the backbones' own. Their vote kernels, scratch
 fills and conversions are timed apart. One call of each of the prefolded
 stem, the down and the three splats runs under
-torch.cuda.set_sync_debug_mode("error"): no host sync inside. The fused BasicBlock kernel, which no path runs, is held
-against its plain version and the two-conv output on the recorded input of
-each of the joint pass's 23 blocks.
+torch.cuda.set_sync_debug_mode("error"): no host sync inside. The fused
+BasicBlock (tiled_block3d), which no path runs, is held on the recorded
+input of each of the joint pass's 23 blocks to its plain version, to the
+two-conv output bit for bit and to a repeat bit for bit, with one call a
+level under the sync debug mode, and on unmasked random inputs at one L0
+and one L1 block of each residual (identity: relu(x) at unoccupied listed
+cells; fused 1x1: zeros); timed beside the two convs and summed by level.
 Phase 2 drives the joint inference path at full MinkUNet34C width on three
 synthetic scenes (random weights from a seed; the tail decodes planted head
 rows, so every scene carries boxes) and checks from the launch counters that
@@ -145,7 +149,9 @@ SOURCES = {
                           "windowed_vote_kernel, fixed_to_float_kernel"),
     "tiled_block3d": ("canonicalvoting_tpu_torch/csrc/tiled_conv.cu",
                       "canonicalvoting_tpu/ops/pallas/tiled_conv.py:977",
-                      "block_kernel"),
+                      "compact_kernel (row map), conv_rows_kernel (conv1 into "
+                      "the compact mid), conv_rows_kernel (conv2 through the "
+                      "row map), split_reduce_kernel, dead_rows_kernel"),
 }
 
 
@@ -631,11 +637,17 @@ def block_bound(x, w1, w2, tiles, ts, occ, res_w):
         {"listed_cells": rows, "occupied_cells": n_live, "occupied_pairs": pairs}
 
 
-def phase1_blocks(pipe, args, s, failures):
+def phase1_blocks(pipe, args, s, levels, by_level, failures):
     """tiled_block3d, which no path runs, on the recorded input of each of
-    the default joint pass's 23 BasicBlocks: against its plain version and
-    against the two-conv output of that block, each within 1% of the
-    output's largest magnitude; timed beside the two convs."""
+    the default joint pass's 23 BasicBlocks: against its plain version
+    within 1% of the output's largest magnitude, bitwise equal to the
+    two-conv output of that block and to a repeated call; one call a level
+    under torch.cuda.set_sync_debug_mode("error"); at one L0 and one L1
+    block of each residual (identity, fused 1x1) on unmasked random inputs
+    against the plain version and the two convs (the identity residual's
+    unoccupied listed cells hold relu(x), the 1x1's exact zeros); timed
+    beside the two convs, each call folding its BN affines as
+    ``BasicBlock.forward`` does, and summed by level into ``by_level``."""
     import torch
 
     import canonicalvoting_tpu_torch.models.dense_unet as du
@@ -662,52 +674,134 @@ def phase1_blocks(pipe, args, s, failures):
                       res_bias=rb)
         return (x, blk.conv1.kernel, blk.conv2.kernel, tiles), kw
 
+    def bitwise(a, b):
+        return bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
+
     # the checking calls alone, counted by the wrapper before any timing
     torch.cuda.synchronize()
     reset_counters()
-    errs = []
-    for i, (blk, x, occ, tiles, ts, out) in enumerate(blocks):
+    checks = []
+    for blk, x, occ, tiles, ts, out in blocks:
         a, kw = block_call(blk, x, occ, tiles, ts)
         got = tc.tiled_block3d(*a, **kw)
-        err, scale = rel_err(got, tc.tiled_block3d_plain(*a, **kw))
-        err2, scale2 = rel_err(got, out)
-        del got
-        tol, tol2 = CONV_REL_TOL * scale, CONV_REL_TOL * scale2
-        if not (err <= tol and err2 <= tol2):
-            failures.append(("tiled_block3d", i, err, tol, err2, tol2))
-        errs.append((err, scale, tol, err2, tol2))
+        checks.append((got, out))
     s["launches"] = tc.tiled_block3d.launches
     s["library_ms"] = None
-    s["two_conv_ms"] = 0.0
+    s["two_conv_ms"] = s["two_conv_device_ms"] = s["two_conv_host_ms"] = 0.0
+    by_level["tiled_block3d"] = {}
+    synced = set()
     for i, (blk, x, occ, tiles, ts, out) in enumerate(blocks):
         a, kw = block_call(blk, x, occ, tiles, ts)
-        err, scale, tol, err2, tol2 = errs[i]
-        ms = time_ms(lambda: tc.tiled_block3d(*a, **kw), 5)
-        host = host_ms(lambda: tc.tiled_block3d(*a, **kw), 2)
-        dev_ms = device_ms(lambda: tc.tiled_block3d(*a, **kw), 2, host)
+        got = checks[i][0]
+        err, scale = rel_err(got, tc.tiled_block3d_plain(*a, **kw))
+        extra = {"bitwise_equal_two_conv": bitwise(got, out),
+                 "bitwise_repeat": bitwise(got, tc.tiled_block3d(*a, **kw))}
+        checks[i] = None
+        del got
+        lvl = levels[tuple(occ.shape)]
+        if lvl not in synced:
+            synced.add(lvl)
+            extra["sync_free"], why = sync_free(lambda: tc.tiled_block3d(*a, **kw))
+            if not extra["sync_free"]:
+                failures.append(("tiled_block3d", i, "host sync inside the call", why))
+        tol = CONV_REL_TOL * scale
+        if not (err <= tol and all(extra.values())):
+            failures.append(("tiled_block3d", i, err, tol, extra))
+        cout = a[2].shape[2]
+
+        def routed():  # the BN folds in the call, as the two convs run them
+            a_, kw_ = block_call(blk, x, occ, tiles, ts)
+            return tc.tiled_block3d(*a_, **kw_)
+
+        ms = time_ms(routed, 5)
+        host = host_ms(routed, 2)
+        dev_ms = device_ms(routed, 2, host)
         plain_ms = time_ms(lambda: tc.tiled_block3d_plain(*a, **kw), 2)
+        fill_ms = time_ms(lambda: torch.zeros(x.shape[:3] + (cout,), dtype=x.dtype,
+                                              device=x.device), 5)
         two_ms = time_ms(lambda: two_conv(blk, x, occ, tiles, ts), 5)
+        two_host = host_ms(lambda: two_conv(blk, x, occ, tiles, ts), 2)
+        two_dev = device_ms(lambda: two_conv(blk, x, occ, tiles, ts), 2, two_host)
         (bound_ms, bound_by), work = block_bound(x, a[1], a[2], tiles, ts, occ,
                                                  kw.get("res_w"))
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["ms"] += ms
         s["plain_ms"] += plain_ms
+        s["fill_ms"] += fill_ms
         s["two_conv_ms"] += two_ms
+        s["two_conv_host_ms"] += two_host
+        s["two_conv_device_ms"] += two_dev
         s["host_ms"] += host
         s["device_ms"] += dev_ms
         s["bound_ms"] += bound_ms
         s[bound_by] += bound_ms
-        emit({"phase": 1, "kernel": "tiled_block3d", "block": i,
+        lv = by_level["tiled_block3d"].setdefault(lvl, {
+            "ms": 0.0, "device_ms": 0.0, "host_ms": 0.0, "bound_ms": 0.0,
+            "fill_ms": 0.0, "two_conv_ms": 0.0, "two_conv_device_ms": 0.0,
+            "two_conv_host_ms": 0.0, "calls": 0})
+        for k, v in (("ms", ms), ("device_ms", dev_ms), ("host_ms", host),
+                     ("bound_ms", bound_ms), ("fill_ms", fill_ms),
+                     ("two_conv_ms", two_ms), ("two_conv_device_ms", two_dev),
+                     ("two_conv_host_ms", two_host), ("calls", 1)):
+            lv[k] += v
+        emit({"phase": 1, "kernel": "tiled_block3d", "block": i, "level": lvl,
               "config": [str(tuple(x.shape[3:])), str(tuple(a[1].shape)),
                          str(tuple(a[2].shape)), str(ts), str(int(tiles.shape[0])),
                          "1x1" if blk.downsample else "identity"],
-              "max_abs_err": err, "ref_max": scale, "tol": tol,
-              "two_conv_max_abs_err": err2, "two_conv_tol": tol2,
+              "max_abs_err": err, "ref_max": scale, "tol": tol, **extra,
               "kernel_ms": ms, "host_ms": host, "device_ms": dev_ms,
-              "plain_ms": plain_ms, "two_conv_ms": two_ms,
+              "fill_ms": fill_ms, "plain_ms": plain_ms, "two_conv_ms": two_ms,
+              "two_conv_host_ms": two_host, "two_conv_device_ms": two_dev,
               "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
               **work})
+    block_unmasked_checks(blocks, levels, block_call, bitwise, failures)
     blocks.clear()
+
+
+def block_unmasked_checks(blocks, levels, block_call, bitwise, failures):
+    """The fused block at one L0 and one L1 block of each residual on
+    random inputs that are non-zero at unoccupied cells too: within 1% of
+    the plain version's peak, bitwise equal to the two convs and to a
+    repeat; the identity residual's unoccupied listed cells hold relu(x)
+    exactly, the fused 1x1's exact zeros. The model's inputs are zero
+    there, so they cannot show a block that drops the dead rows."""
+    import torch
+
+    import canonicalvoting_tpu_torch.models.dense_unet as du
+    import canonicalvoting_tpu_torch.ops.tiled_conv as tc
+
+    done = set()
+    for i, (blk, x, occ, tiles, ts, _) in enumerate(blocks):
+        lvl, kind = levels[tuple(occ.shape)], "1x1" if blk.downsample else "identity"
+        if lvl not in (0, 1) or (lvl, kind) in done:
+            continue
+        done.add((lvl, kind))
+        g = torch.Generator(device=x.device).manual_seed(1)
+        xr = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+        a, kw = block_call(blk, xr, occ, tiles, ts)
+        got = tc.tiled_block3d(*a, **kw)
+        err, scale = rel_err(got, tc.tiled_block3d_plain(*a, **kw))
+        cells = tc._row_cells(tiles, ts)
+        flat = tc._flat(cells, occ.shape)
+        unocc = flat[occ.reshape(-1)[flat] == 0]
+        rows = got.reshape(-1, got.shape[3])[unocc]
+        want = (torch.zeros_like(rows) if blk.downsample
+                else torch.clamp_min(xr.reshape(-1, xr.shape[3])[unocc], 0))
+        extra = {"bitwise_equal_two_conv": bitwise(
+                     got, du.BasicBlock.forward(blk, xr, occ, tiles, ts)),
+                 "bitwise_repeat": bitwise(got, tc.tiled_block3d(*a, **kw)),
+                 "unoccupied_" + ("exact_zeros" if blk.downsample else "relu_x"):
+                     bool(torch.equal(rows, want))}
+        tol = CONV_REL_TOL * scale
+        if not (err <= tol and all(extra.values())):
+            failures.append(("tiled_block3d", i, "unmasked inputs", err, tol, extra))
+        emit({"phase": 1, "kernel": "tiled_block3d", "check": "unmasked_inputs",
+              "block": i, "level": lvl, "residual": kind, "max_abs_err": err,
+              "ref_max": scale, "tol": tol, "unoccupied_listed_cells": int(unocc.numel()),
+              **extra})
+        del got, xr, rows, want
+    if len(done) != 4:
+        failures.append(("tiled_block3d unmasked inputs: checked only", sorted(done)))
 
 
 # the kernels whose rows are compacted to the occupied ones: their outputs
@@ -725,7 +819,7 @@ ZERO_AT_UNOCCUPIED = ("tiled_conv3d_prefolded", "tiled_down2", "tiled_up2_into")
 INTO_JUNK = 7.0
 # the wrappers that zero-fill a fresh output grid, or the splat's scratch
 FILLED = ("tiled_conv3d", "tiled_conv3d_prefolded", "tiled_down2", "tiled_up2",
-          "hv_splat", "hv_splat6", "hv_splat_windowed")
+          "hv_splat", "hv_splat6", "hv_splat_windowed", "tiled_block3d")
 # the splats whose vote kernel and conversion are timed apart
 SPLATS = ("hv_splat", "hv_splat6", "hv_splat_windowed")
 # the wrappers held to no host sync inside a call
@@ -1143,14 +1237,14 @@ def phase1(pipe, scene):
               "tol": tol, "kernel_ms": ms, "fill_ms": fill_ms,
               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, **extra})
-    emit({"phase": 1, "by_level": by_level})
     unmasked_checks(records, kern, plain, levels, failures)
     records.clear()
     heads.clear()
     occ_of.clear()
     torch.cuda.empty_cache()
-    phase1_blocks(pipe, args, summary["tiled_block3d"], failures)
+    phase1_blocks(pipe, args, summary["tiled_block3d"], levels, by_level, failures)
     torch.cuda.empty_cache()
+    emit({"phase": 1, "by_level": by_level})
     assert not failures, f"kernels disagree with their plain versions: {failures}"
     for n, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes") >= s.pop("operations") \
@@ -1689,6 +1783,8 @@ def main() -> int:
             kernels[-1]["launches_from"] = (
                 "phase 1: one check a BasicBlock of a joint pass; no path "
                 "runs the fused block")
+            kernels[-1].update({k: s[k] for k in (
+                "two_conv_ms", "two_conv_device_ms", "two_conv_host_ms")})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
