@@ -1,17 +1,31 @@
-"""The configuration keys the joint evaluator reads.
+"""The configuration keys the port's evaluators and datasets read.
 
-The subset of ``canonicalvoting_tpu/config.py`` that ``eval_joint`` uses, with
-the same names and defaults (upstream ``config/config.yaml``): ``scannet_res``,
-``log_scale``, ``use_xyz``, ``in_channels``, ``tpu.max_boxes`` and
+A subset of ``canonicalvoting_tpu/config.py`` with the same names and
+defaults (upstream ``config/config.yaml``): the ``data.*`` paths,
+``scannet_res``, ``log_scale``, ``use_xyz``, ``category``, ``augment``,
+``augment_color``, ``in_channels``, ``tpu.max_boxes`` and
 ``tpu.conv_dtype``. Values come from an optional YAML file, then from
-hydra-style ``key=value`` overrides. ``yaml`` is imported only when a file
-is given.
+hydra-style ``key=value`` overrides, each cast to the type of the field it
+sets. ``yaml`` is imported only when a file is given.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Optional
+
+
+@dataclass
+class DataConfig:
+    # upstream config/config.yaml:1-9
+    scan2cad: str = "/path/to/full_annotations.json"
+    scannet: str = "/data/ScanNetV2"
+    train_split: str = "/path/to/scannetv2_train.txt"
+    val_split: str = "/path/to/scannetv2_val.txt"
+    train_segments: str = "/path/to/scan2cad/train/scan2cad_segments.pkl"
+    val_segments: str = "/path/to/scan2cad/val/scan2cad_segments.pkl"
+    gt_path: str = "/path/to/results_gt"
+    scene_nn_root: str = "/path/to/scene_nn/root"
 
 
 @dataclass
@@ -24,9 +38,13 @@ class TPUConfig:
 
 @dataclass
 class Config:
+    data: DataConfig = field(default_factory=DataConfig)
     scannet_res: float = 0.03
     log_scale: bool = True
+    augment_color: bool = False
+    augment: bool = True
     use_xyz: bool = False
+    category: str = "all"
     tpu: TPUConfig = field(default_factory=TPUConfig)
 
     @property
@@ -71,8 +89,32 @@ def load_config(yaml_path: Optional[str] = None,
                 try:
                     _set(cfg, key, v)
                 except (KeyError, AttributeError):
-                    continue  # keys the joint evaluator does not read
+                    continue  # keys the port does not read
     for ov in overrides or []:
+        if "=" not in ov:
+            continue
         key, _, value = ov.partition("=")
         _set(cfg, key.strip().lstrip("+"), value.strip())
     return cfg
+
+
+def parse_cli(argv: list) -> tuple:
+    """(yaml_path, overrides, categories): ``--config=<yaml>``, the
+    ``key=value`` overrides, and the categories of the multirun sweep
+    ``category=a,b,c -m`` (None without ``-m``)."""
+    multirun = False
+    overrides = []
+    yaml_path = None
+    for a in argv:
+        if a in ("-m", "--multirun"):
+            multirun = True
+        elif a.startswith("--config="):
+            yaml_path = a.split("=", 1)[1]
+        else:
+            overrides.append(a)
+    categories = None
+    if multirun:
+        for ov in overrides:
+            if ov.startswith("category="):
+                categories = ov.split("=", 1)[1].split(",")
+    return yaml_path, overrides, categories

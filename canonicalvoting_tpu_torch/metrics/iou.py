@@ -87,3 +87,21 @@ def get_iou_obb(bbox1: np.ndarray, bbox2: np.ndarray) -> float:
     if denom <= 0:
         return 0.0
     return inter_vol / denom
+
+
+def get_iou_obb2d(bbox1: np.ndarray, bbox2: np.ndarray) -> float:
+    """The XZ-plane IoU of two boxes' top faces (upstream
+    utils/calc_map.py:24-37), 0 for a degenerate box as ``get_iou_obb``."""
+    bbox1 = np.asarray(bbox1, dtype=np.float64)
+    bbox2 = np.asarray(bbox2, dtype=np.float64)
+    if not (bbox1[0, 1] > bbox1[4, 1] and bbox2[0, 1] > bbox2[4, 1]):
+        return 0.0
+    poly1 = np.stack([bbox1[:4, 0], bbox1[:4, 2]], -1)
+    poly2 = np.stack([bbox2[:4, 0], bbox2[:4, 2]], -1)
+    inter_area = convex_intersection_area(poly1, poly2)
+    a1 = polygon_area(poly1)
+    a2 = polygon_area(poly2)
+    denom = a1 + a2 - inter_area
+    if denom <= 0:
+        return 0.0
+    return inter_area / denom

@@ -1,6 +1,6 @@
 """Load weights into the port's modules.
 
-Two sources, one tree. The JAX package's variables are nested dicts
+Three sources, one tree. The JAX package's variables are nested dicts
 ``{"params": {...}, "batch_stats": {...}}`` whose paths are the port's module
 paths (``block1_0/conv1/kernel`` is ``block1_0.conv1.kernel``), so
 :func:`from_jax_variables` copies them in without renaming. The upstream
@@ -18,7 +18,9 @@ onto that tree by :func:`convert_state_dict`, the key map of
 
 MinkowskiEngine stores kernels (K, Cin, Cout) with x-fastest offsets, as the
 port does, so they copy without permutation; k=1 kernels are stored
-(Cin, Cout) and gain their leading K=1 axis.
+(Cin, Cout) and gain their leading K=1 axis. The JAX package's own training
+checkpoints (``.ckpt``, read by ``train/checkpoint.py``) hold that tree
+already, under their state's ``params`` and ``batch_stats``.
 """
 
 from __future__ import annotations
@@ -42,12 +44,16 @@ def _leaves(tree: Dict, prefix: str = ""):
             yield prefix + k, v
 
 
+def _f32(v) -> torch.Tensor:
+    if torch.is_tensor(v):  # bfloat16 leaves of a .ckpt
+        return v.float()
+    return torch.from_numpy(np.array(v, np.float32))
+
+
 def jax_state_dict(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
     """A JAX variables tree (numpy arrays) as the port's float32 state dict."""
-    state = {name: torch.from_numpy(np.array(v, np.float32))
-             for name, v in _leaves(params)}
-    state.update({name: torch.from_numpy(np.array(v, np.float32))
-                  for name, v in _leaves(batch_stats)})
+    state = {name: _f32(v) for name, v in _leaves(params)}
+    state.update({name: _f32(v) for name, v in _leaves(batch_stats)})
     return state
 
 
@@ -110,22 +116,41 @@ def load_pth(model: torch.nn.Module, path: str) -> torch.nn.Module:
     return from_jax_variables(model, *convert_state_dict(sd))
 
 
+def load_ckpt(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load the params and batch statistics of a JAX package ``.ckpt``."""
+    from canonicalvoting_tpu_torch.train.checkpoint import read_checkpoint
+
+    state, _ = read_checkpoint(path)
+    return from_jax_variables(model, state["params"], state["batch_stats"])
+
+
+def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """An upstream ``.pth`` or a JAX package ``.ckpt``, by its suffix."""
+    if path.endswith(".pth"):
+        return load_pth(model, path)
+    return load_ckpt(model, path)
+
+
 def category_state_dicts(model, categories: List[str],
                          pretrained_dir: Optional[str] = None
                          ) -> List[Dict[str, torch.Tensor]]:
     """State dicts of the per-category models of ``model``'s plan, in
-    ``categories`` order: the upstream ``<wnid>.pth`` of each category in
-    ``pretrained_dir`` (named through ``NAME2CATNAME`` as the upstream
-    ``eval_separate.py`` names them), or, where there is none, random
-    weights from ``torch.manual_seed(index)``."""
+    ``categories`` order, looked for in ``pretrained_dir`` as the JAX
+    ``eval_separate.py`` looks: the upstream ``<wnid>.pth`` (named through
+    ``NAME2CATNAME``), then the JAX package's ``<category>.ckpt``, and,
+    where there is neither, random weights from
+    ``torch.manual_seed(index)``."""
     catname2name = {v: k for k, v in NAME2CATNAME.items()}
     out = []
     for i, category in enumerate(categories):
         torch.manual_seed(i)
         m = DenseMinkUNet(**model.config())
-        path = (None if pretrained_dir is None else
-                os.path.join(pretrained_dir, f"{catname2name[category]}.pth"))
-        if path is not None and os.path.exists(path):
-            load_pth(m, path)
+        if pretrained_dir is not None:
+            for path in (
+                    os.path.join(pretrained_dir, f"{catname2name[category]}.pth"),
+                    os.path.join(pretrained_dir, f"{category}.ckpt")):
+                if os.path.exists(path):
+                    load_weights(m, path)
+                    break
         out.append({k: v.detach() for k, v in m.state_dict().items()})
     return out

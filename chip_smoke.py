@@ -67,6 +67,16 @@ up_impl="into" and hv_method="pallas_windowed", checks the exact launch
 counts and the default routes' boxes and head rows, times backbone and
 splat both ways, and runs one separate scene with both variants against
 the default.
+The scannet phase writes the three scenes as a ScanNet + Scan2CAD data tree
+(binary PLY with faces, full_annotations.json, split, segments pickle,
+results_gt), holds the dataset's items bitwise against its own transform
+and quantization of each PLY and the parsed ground truth against the planted
+boxes (1e-5 m), then runs eval_joint.main over the three scans and
+eval_separate.main over two on the card, with their default seeded weights:
+exact conv launch counts, detections and backbone rows bitwise equal to the
+pipelines' on the same items (the tails decode planted rows), a finite mAP
+at both thresholds; host ms of the dataset's read, transform and quantize,
+and each CLI loop's scenes/s.
 
 The last two lines are the kernels' summary and the status line. The script
 exits non-zero, printing neither, if there is no CUDA device, if the port is
@@ -1714,6 +1724,245 @@ def phase_variants(pipe, sep, scenes):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the scannet phase: the CLIs over a ScanNet + Scan2CAD data tree
+
+@contextlib.contextmanager
+def cli_hooks(rows_by_id):
+    """The CLIs' hooks, restored on exit: each dataset item is timed and
+    names the scan whose planted rows (``rows_by_id``, built beforehand)
+    the tails decode; the backbones still run, their rows kept on the
+    card; compute_map records what it is handed."""
+    import canonicalvoting_tpu_torch.data.scannet as sc
+    import canonicalvoting_tpu_torch.metrics.ap as ap
+    from canonicalvoting_tpu_torch.eval.pipeline import DetectionPipeline
+    from canonicalvoting_tpu_torch.eval.separate import (
+        SeparateDetectionPipeline)
+
+    rec = {"id": None, "heads": [], "map": [], "getitem_ms": [], "t0": None,
+           "t_map": None}
+    base = sc.ScanNetXYZProbMultiDataset
+    joint, sep = DetectionPipeline.backbone, SeparateDetectionPipeline.backbones
+    compute_map = ap.compute_map
+
+    class Timed(base):
+        def __getitem__(self, index):
+            t0 = time.perf_counter()
+            rec["t0"] = rec["t0"] or t0
+            item = base.__getitem__(self, index)
+            rec["getitem_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["id"] = item[0]
+            return item
+
+    def backbone(self, args):
+        rec["heads"].append(joint(self, args).clone())
+        return rows_by_id[rec["id"]]
+
+    def backbones(self, args, shared=None):
+        rec["heads"].append(sep(self, args, shared).clone())
+        return rows_by_id[rec["id"]]
+
+    def recorded_map(pred, gt, **kw):
+        rec["t_map"] = rec["t_map"] or time.perf_counter()
+        rec["map"].append((pred, gt))
+        return compute_map(pred, gt, **kw)
+
+    with patched(sc, ScanNetXYZProbMultiDataset=Timed), \
+            patched(DetectionPipeline, backbone=backbone), \
+            patched(SeparateDetectionPipeline, backbones=backbones), \
+            patched(ap, compute_map=recorded_map):
+        yield rec
+
+
+@contextlib.contextmanager
+def peel_of(pipe, peel):
+    old = pipe.peel
+    pipe.peel = peel
+    try:
+        yield pipe
+    finally:
+        pipe.peel = old
+
+
+def same_detections(got, want) -> bool:
+    return len(got) == len(want) and all(
+        c == wc and s == ws and np_equal(b, wb)
+        for (c, b, s), (wc, wb, ws) in zip(got, want))
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def scannet_items(ds, root, n):
+    """The dataset's first ``n`` items, each held bitwise against the
+    phase's own read, transform and quantization of the scan's PLY, and
+    the host ms of each piece."""
+    import os
+
+    import numpy as np
+
+    from canonicalvoting_tpu_torch.data.geometry import make_M_from_tqs
+    from canonicalvoting_tpu_torch.data.ply import read_ply_vertices
+    from canonicalvoting_tpu_torch.ops.voxelize import sparse_quantize
+
+    items, ms, equal = [], {"getitem": [], "ply_read": [], "transform": [],
+                            "quantize": []}, []
+    for i in range(n):
+        t0 = time.perf_counter()
+        item = ds[i]
+        ms["getitem"].append((time.perf_counter() - t0) * 1e3)
+        ann = ds.annotations[i]
+        id_scan, trs = ann["id_scan"], ann["trs"]
+        t0 = time.perf_counter()
+        v = read_ply_vertices(os.path.join(root, "scans", id_scan,
+                                           f"{id_scan}_vh_clean_2.ply"))
+        t1 = time.perf_counter()
+        M = make_M_from_tqs(trs["translation"], trs["rotation"], trs["scale"])
+        pcd = np.stack([v["x"], v["y"], v["z"]], -1)
+        hom = np.concatenate([pcd, np.ones((len(pcd), 1))], -1)
+        points = (M @ hom.T).T[:, :3].astype(np.float32)
+        t2 = time.perf_counter()
+        coords, idx = sparse_quantize(points, RES)
+        t3 = time.perf_counter()
+        rgb = np.stack([v["red"], v["green"], v["blue"]], -1)
+        feats = (rgb / 255.0).astype(np.float32)[idx]
+        ms["ply_read"].append((t1 - t0) * 1e3)
+        ms["transform"].append((t2 - t1) * 1e3)
+        ms["quantize"].append((t3 - t2) * 1e3)
+        equal.append(item[0] == id_scan and np_equal(item[1], coords)
+                     and np_equal(item[2], feats))
+        items.append(item[:3])
+    return items, ms, equal
+
+
+def phase_scannet(pipe, sep, scenes, card):
+    """The real-data path: the scenes written as a ScanNet + Scan2CAD tree
+    (binary PLY with faces, full_annotations.json, split, segments, ground
+    truth), read back by the dataset (items bitwise equal to the phase's
+    own transform and quantization of each PLY) and the ground-truth
+    parser (the planted boxes' corners within 1e-5 m), then both CLIs on
+    the card with their default seeded weights, eval_joint over the three
+    scans and eval_separate over two: exact conv launch counts, their
+    detections and backbone rows bitwise equal to the pipelines' on the
+    same items with the same weights (the tails decode planted rows), a
+    finite mAP at both thresholds. Returns both runs' launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from canonicalvoting_tpu_torch import eval_joint, eval_separate
+    from canonicalvoting_tpu_torch.config import load_config
+    from canonicalvoting_tpu_torch.data.geometry import NAME2CATNAME
+    from canonicalvoting_tpu_torch.data.scannet import (
+        ScanNetXYZProbMultiDataset)
+    from canonicalvoting_tpu_torch.data.synthetic_tree import (
+        wnid_of, write_scannet_tree)
+    from canonicalvoting_tpu_torch.decode.peeling import PeelConfig
+    from canonicalvoting_tpu_torch.eval.gt import load_gt_scene
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_scannet_")
+    try:
+        ids = [f"scene{i:04d}_00" for i in range(len(scenes))]
+        overrides = write_scannet_tree(root, scenes, ids) + [f"scannet_res={RES}"]
+        with open(os.path.join(root, "split_separate.txt"), "w") as f:
+            f.write("\n".join(ids[:N_SEPARATE_SCENES]) + "\n")
+        cfg = load_config(None, overrides)
+        ds = ScanNetXYZProbMultiDataset(cfg, training=False, augment=False)
+        items, host_ms, items_equal = scannet_items(ds, root, len(scenes))
+        gt_err, gt_names = 0.0, True
+        for id_scan, scene in zip(ids, scenes):
+            gt = load_gt_scene(cfg.data.gt_path, id_scan)
+            want = scene.gt_corners()
+            gt_names &= [c for c, _ in gt] == [
+                NAME2CATNAME.get(wnid_of(ci), wnid_of(ci)) for ci, _ in want]
+            gt_err = max([gt_err] + [float(np.abs(b - w).max())
+                                     for (_, b), (_, w) in zip(gt, want)])
+        # the planted rows of each scan, at the rows the CLIs' prep gives
+        rows = {"joint": {}, "separate": {}}
+        for (id_scan, coords, feats), scene in zip(items, scenes):
+            rows["joint"][id_scan] = planted_rows(
+                scene, pipe.prepare_quantized(coords, feats))
+            rows["separate"][id_scan] = torch.as_tensor(separate_rows(
+                scene, sep.prepare_quantized(coords, feats),
+                len(sep.categories)), device=sep.device)
+
+        runs = {}
+        for name, main, argv, ref, peel, n in (
+                ("joint", eval_joint.main, overrides, pipe,
+                 PeelConfig(res=RES, max_boxes=64), len(scenes)),
+                ("separate", eval_separate.main, overrides + [
+                    f"data.val_split={root}/split_separate.txt"], sep,
+                 PeelConfig(res=RES, elimination_inclusive=False,
+                            max_boxes=64), N_SEPARATE_SCENES)):
+            with cli_hooks(rows[name]) as rec:
+                torch.cuda.synchronize()
+                reset_counters()
+                results = main(argv)
+                torch.cuda.synchronize()
+                launches = read_counters()
+                pred, gt = rec["map"][0]
+                loop_s = rec["t_map"] - rec["t0"]
+                cli_heads = rec["heads"][:]
+                # the pipelines on the same items, with the CLIs' peel
+                with peel_of(ref, peel):
+                    want = {}
+                    for id_scan, coords, feats in items[:n]:
+                        rec["id"] = id_scan
+                        if name == "joint":
+                            want[id_scan] = ref.postprocess(
+                                ref.run_scene_with_retry(
+                                    ref.prepare_quantized(coords, feats)))
+                        else:
+                            want[id_scan] = ref.detect(coords, feats)
+                ref_heads = rec["heads"][len(cli_heads):]
+            runs[name] = {
+                "scenes": n, "scenes_per_s": n / loop_s,
+                "getitem_ms": rec["getitem_ms"][:n], "launches": launches,
+                "detections": [len(pred.get(i, ())) for i in ids[:n]],
+                "detections_equal": list(pred) == ids[:n] and all(
+                    same_detections(pred[i], want[i]) for i in ids[:n]),
+                "heads_equal": len(cli_heads) == len(ref_heads) == n and all(
+                    torch.equal(a, b) for a, b in zip(cli_heads, ref_heads)),
+                "gt_boxes": [len(gt[i]) for i in ids[:n]],
+                "mAP": {str(t): float(d["mAP"]) for t, d in results.items()},
+                "AR": {str(t): float(d.get("AR", float("nan")))
+                       for t, d in results.items()}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    emit({"phase": "scannet", "scenes": len(scenes),
+          "voxels": [len(c) for _, c, _ in items],
+          "points": [len(s.points) for s in scenes],
+          "host_ms": host_ms, "items_bitwise_equal": items_equal,
+          "gt_max_abs_err_m": gt_err, "gt_names_ok": gt_names,
+          "joint": runs["joint"], "separate": runs["separate"],
+          "scenenn": "not run: no h5py", "card": card})
+    assert all(items_equal), f"dataset items differ: {items_equal}"
+    assert gt_err <= 1e-5 and gt_names, f"ground truth off by {gt_err} m"
+    for name, per_scene in (("joint", PER_SCENE),
+                            ("separate", SEPARATE_PER_SCENE)):
+        r = runs[name]
+        for k, per in per_scene.items():
+            if k in ("hv_splat", "hv_splat6"):
+                continue  # a budget exit reruns a tail: >= below
+            assert r["launches"][k] == per * r["scenes"], (name, k, r["launches"])
+        assert r["launches"]["hv_splat"] >= r["scenes"], (name, r["launches"])
+        assert r["launches"]["hv_splat6"] == 0, (name, r["launches"])
+        assert r["detections_equal"], f"{name} CLI detections differ"
+        assert r["heads_equal"], f"{name} CLI backbone rows differ"
+        assert sum(r["detections"]) >= r["scenes"], (name, r["detections"])
+        assert all(np.isfinite(v) for v in r["mAP"].values()), (name, r["mAP"])
+    assert runs["joint"]["launches"]["tiled_conv3d_prefolded"] == 0
+    return {k: runs["joint"]["launches"][k] + runs["separate"]["launches"][k]
+            for k in runs["joint"]["launches"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1748,7 +1997,8 @@ def main() -> int:
               ("separate", lambda: phase_separate(sep(), scenes)),
               ("stem", lambda: phase_stem(sep(), scenes)),
               ("nonlazy", lambda: phase_nonlazy(pipe, sep(), scenes[0])),
-              ("variants", lambda: phase_variants(pipe, sep(), scenes)))
+              ("variants", lambda: phase_variants(pipe, sep(), scenes)),
+              ("scannet", lambda: phase_scannet(pipe, sep(), scenes, smi)))
     for name, run in phases:
         try:
             done[name] = run()
@@ -1758,12 +2008,14 @@ def main() -> int:
     emit({"total_s": time.perf_counter() - t_start, "failed": failed})
     if failed:
         return 1
-    # launches: the sum over the runs of the four paths (phase 2, the
-    # separate phase, the non-lazy phase, the variants phase), each counted
-    # from 0; the fused block, which no path runs, counts phase 1's checks
+    # launches: the sum over the runs of the paths (phase 2, the separate
+    # phase, the non-lazy phase, the variants phase, the two CLIs of the
+    # scannet phase), each counted from 0; the fused block, which no path
+    # runs, counts phase 1's checks
     summary = done["phase1"]
     launches = {n: done["phase2"][0][n] + done["separate"][n]
-                + done["nonlazy"][n] + done["variants"][n] for n in SOURCES}
+                + done["nonlazy"][n] + done["variants"][n] + done["scannet"][n]
+                for n in SOURCES}
     launches["tiled_block3d"] = summary["tiled_block3d"]["launches"]
     kernels = []
     for name, (source, replaces, cuda_kernels) in SOURCES.items():
