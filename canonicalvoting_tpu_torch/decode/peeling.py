@@ -177,7 +177,8 @@ def peel_boxes_batched(grid_obj: torch.Tensor, points: torch.Tensor,
         conf_f = conf.float()
         err_vec = torch.linalg.norm(xyz_pred - torch.stack([w0, w1, w2], -1),
                                     dim=-1)
-        err = (err_vec * prob_pred * conf_f).sum(-1) / torch.clamp_min(n_conf, 1)
+        err = torch.where(conf, err_vec * prob_pred, torch.zeros_like(
+            err_vec)).sum(-1) / torch.clamp_min(n_conf, 1)
         ok = ((n_conf >= cfg.valid_ratio * n_inside)
               & (n_inside >= cfg.thresh_low) & (err <= cfg.err_thresh)
               & ~stop & live)

@@ -2,8 +2,8 @@
 one scene.
 
 Counterpart of ``canonicalvoting_tpu/eval/separate.py:SeparateDetectionPipeline``
-on its dense path (``backbone="dense"``, tiled kernels, ``stem_impl=
-"prefold"``), the upstream ``eval_separate.py:165-186``:
+(the upstream ``eval_separate.py:165-186``), on its dense path
+(``backbone="dense"``, tiled kernels, ``stem_impl="prefold"``):
 
   host:   sparse_quantize, dense grid geometry, tile lists (once per scene)
   device: the scene's shared grids, once: scatter grid, occupancy pyramid
@@ -14,14 +14,20 @@ on its dense path (``backbone="dense"``, tiled kernels, ``stem_impl=
           the categories' vote grids
   host:   per-category NMS
 
+or on its gather-form path (``backbone="sparse"``): one coordinate pyramid a
+scene (uploaded once), nine sparse ``MinkUNetBase`` passes over it, then the
+same batched tail. The JAX package vmaps backbone, vote and peel over the
+categories there (``separate.py:205-225``); the batched tail computes the
+same function.
+
 The categories' weights are stacked on a leading axis (``stack_state_dicts``)
 and each category's pass is ``torch.func.functional_call`` of one module
 with its slice; the prefolded stem's folded weights and the four down
 convs' K-major weights are built once per category (or group) when the
 weights are installed. With ``group_size`` N >
 1 the categories are packed N at a time into block-diagonal grouped nets
-(``eval/grouped.py``). The gather-form sparse backbone
-(``backbone="sparse"``) is not ported yet.
+(``eval/grouped.py``); the sparse path takes one category a pass, as the
+JAX package's does.
 
 The pipeline runs on the card unless ``device="cpu"`` is asked for; the
 default raises where there is no GPU.
@@ -42,10 +48,12 @@ from canonicalvoting_tpu_torch.decode.peeling import PeelConfig, peel_boxes_batc
 from canonicalvoting_tpu_torch.eval.grouped import (
     build_grouped_state, grouped_model_config)
 from canonicalvoting_tpu_torch.eval.pipeline import (
-    SceneArgs, prepare_scene_args, slice_separate_heads)
+    BACKBONES, SceneArgs, SparseSceneArgs, prepare_scene_args,
+    slice_separate_heads)
 from canonicalvoting_tpu_torch.metrics.ap import nms as nms_host
 from canonicalvoting_tpu_torch.models.dense_unet import (
     DOWN_KERNELS, DenseMinkUNet, shared_scene_grids)
+from canonicalvoting_tpu_torch.models.minkunet import sparse_plan
 from canonicalvoting_tpu_torch.ops.hough_voting import (
     check_hv_method, clipped_grid_dims, compute_corners, hough_voting,
     hough_voting_obj, vote_stats_at_cell)
@@ -103,10 +111,12 @@ class SeparateDetectionPipeline:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.backbone != "dense":
-            raise NotImplementedError(
-                f"backbone={self.backbone!r}: the gather-form sparse backbone "
-                "is not ported yet; the port runs backbone='dense'")
+        if self.backbone not in BACKBONES:
+            raise ValueError(f"backbone must be one of {BACKBONES}, got "
+                             f"{self.backbone!r}")
+        if self.backbone == "sparse" and self.group_size != 1:
+            raise ValueError("the sparse backbone runs one category a pass "
+                             "(group_size=1), as the JAX package's does")
         check_hv_method(self.hv_method)
         if self.categories is None:
             self.categories = list(ALL_CATEGORIES)
@@ -121,8 +131,13 @@ class SeparateDetectionPipeline:
         cfg = self.model.config()
         cfg["stem_impl"] = self.stem_impl
         self.plan = DenseMinkUNet(**cfg)
-        net = self.plan if self.group_size == 1 else DenseMinkUNet(
-            **grouped_model_config(self.plan, self.group_size))
+        if self.backbone == "sparse":
+            net = sparse_plan(self.plan)
+        elif self.group_size == 1:
+            net = self.plan
+        else:
+            net = DenseMinkUNet(**grouped_model_config(self.plan,
+                                                       self.group_size))
         self.net = net.to(self.device).eval().requires_grad_(False)
         self.stacked = None
         self.stem_wt = None  # per group: the prefolded stem's folded weights
@@ -145,18 +160,21 @@ class SeparateDetectionPipeline:
                       for i in range(0, len(groups), n)]
         self.stacked = {k: v.to(self.device)
                         for k, v in stack_state_dicts(groups).items()}
+        if self.backbone == "sparse":
+            return
         self.stem_wt = None if self.stem_impl != "prefold" else [
             self.net.fold_stem(w) for w in self.stacked["conv0p1s1.kernel"]]
         self.down_wt = [self.net.fold_downs(ws) for ws in
                         zip(*(self.stacked[k] for k in DOWN_KERNELS))]
 
     # ------------------------------------------------------------------
-    def prepare_quantized(self, coords: np.ndarray,
-                          feats_raw: np.ndarray) -> SceneArgs:
-        """Host prep of one scene, shared by every category."""
+    def prepare_quantized(self, coords: np.ndarray, feats_raw: np.ndarray):
+        """Host prep of one scene, shared by every category: a
+        ``SceneArgs`` (dense) or ``SparseSceneArgs`` (sparse)."""
         return prepare_scene_args(
             coords, feats_raw, res=self.res, cap_multiple=self.cap_multiple,
-            grid_multiple=self.grid_multiple, device=self.device)
+            grid_multiple=self.grid_multiple, device=self.device,
+            backbone=self.backbone)
 
     @torch.no_grad()
     def shared_grids(self, args: SceneArgs) -> Dict[str, object]:
@@ -172,10 +190,15 @@ class SeparateDetectionPipeline:
     def backbones(self, args: SceneArgs,
                   shared: Optional[Dict[str, object]] = None) -> torch.Tensor:
         """(C, cap, 8) head rows, one backbone pass per category (or group)
-        over the shared grids."""
+        over the shared grids, or one sparse pass per category over the
+        scene's pyramid."""
         if self.stacked is None:
             raise RuntimeError("no weights: pass state_dicts or call "
                                "set_state_dicts")
+        if isinstance(args, SparseSceneArgs):
+            return torch.stack([functional_call(
+                self.net, {k: v[c] for k, v in self.stacked.items()},
+                (args.feats, args.pyramid)) for c in range(len(self.categories))])
         if shared is None:
             shared = self.shared_grids(args)
         n, out_ch = self.group_size, self.plan.out_channels

@@ -1,10 +1,13 @@
-"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's native sources and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` launchers and compiles
-alone, in seconds, into ``build/lib<name>.so`` at the repository root. A
-library is built on first use, or again when its source is newer than the
-built file; :func:`build_all` compiles every source at once, one ``nvcc``
-process each. Nothing here runs at import time.
+alone with ``nvcc``, in seconds, into ``build/lib<name>.so`` at the
+repository root; ``csrc/coords_native.c``, the host coordinate manager,
+compiles the same way with ``cc`` (no ``-march=native``: the library must
+run on any x86-64 host that loads it). A library is built on first use, or
+again when its source is newer than the built file; :func:`build_all`
+compiles every source at once, one compiler process each. A failed build
+raises. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,9 +23,12 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("tiled_conv", "hv_splat")
+SOURCES = ("tiled_conv", "hv_splat", "coords_native")
+#: the sources built for the host with cc; every other one is CUDA
+HOST_SOURCES = ("coords_native",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+CC_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -38,6 +44,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _cc() -> str:
+    found = shutil.which("cc") or shutil.which("gcc")
+    if found:
+        return found
+    raise RuntimeError("cc not found: the native coordinate manager cannot "
+                       "be built")
+
+
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.c" if name in HOST_SOURCES else f"{name}.cu")
+
+
 def _target(name: str) -> Path:
     return BUILD / f"lib{name}.so"
 
@@ -45,14 +63,16 @@ def _target(name: str) -> Path:
 def _stale(name: str) -> bool:
     so = _target(name)
     return (not so.exists()
-            or so.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+            or so.stat().st_mtime < _source(name).stat().st_mtime)
 
 
 def _start(name: str):
-    """Start one nvcc; it writes a temporary file, renamed on success."""
+    """Start one compiler; it writes a temporary file, renamed on success."""
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = BUILD / f"lib{name}.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    compiler = ([_cc(), *CC_FLAGS] if name in HOST_SOURCES
+                else [_nvcc(), *NVCC_FLAGS])
+    cmd = [*compiler, "-o", str(tmp), str(_source(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return name, proc, tmp
@@ -61,7 +81,8 @@ def _start(name: str):
 def _finish(name: str, proc: subprocess.Popen, tmp: Path) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"build failed for {_source(name).relative_to(CSRC.parent)}:"
+                           f"\n{log}")
     os.replace(tmp, _target(name))
 
 

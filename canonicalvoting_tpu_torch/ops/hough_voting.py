@@ -105,13 +105,17 @@ def vote_stats_at_cell(points, xyz, scale, obj, corner, dims, res: float,
     tx = torch.clamp_min(1.0 - torch.abs(ux - cellf[..., 0:1]), 0.0)
     ty = torch.clamp_min(1.0 - torch.abs(uy - cellf[..., 1]), 0.0)[..., None]
     tz = torch.clamp_min(1.0 - torch.abs(uz - cellf[..., 2:3]), 0.0)
-    w = obj[..., None] * tx * ty * tz * ok.float()
-    if valid is not None:
-        w = w * (valid > 0).float()[:, None]
+    # invalid rows drop out by select, not by a product: the sparse args'
+    # padding rows may hold junk heads far from the grid
+    keep = ok if valid is None else ok & (valid > 0)[:, None]
+    w = torch.where(keep, obj[..., None] * tx * ty * tz, torch.zeros_like(tx))
     denom = (w.sum((-2, -1)) + 1e-7)[..., None]
     rot_vec = torch.stack([(w * c).sum((-2, -1)), (w * s).sum((-2, -1))],
                           -1) / denom
-    scale_vec = (w.sum(-1)[..., None] * scale).sum(-2) / denom
+    ws = w.sum(-1)[..., None] * scale
+    if valid is not None:  # 0 * a padding row's non-finite scale is NaN
+        ws = torch.where((valid > 0)[:, None], ws, torch.zeros_like(ws))
+    scale_vec = ws.sum(-2) / denom
     return rot_vec, scale_vec
 
 

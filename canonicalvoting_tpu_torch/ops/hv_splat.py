@@ -131,6 +131,8 @@ def _splat_plain(points, xyz, scale, obj, corner, dims, res, num_rots,
                          (points[:, 1:2] + off_y - corner[1]) / res,
                          (points[:, 2:3] + off_z - corner[2]) / res], -1)
         ok = torch.all((u >= 0.0) & (u < dimf - 1.0), -1)
+        if valid is not None:  # as the kernels: an invalid row places nothing
+            ok = ok & (valid > 0)[:, None]
         u = u[ok]
         ob = objv[:, None].expand(ok.shape)[ok]
         if x_window is not None:

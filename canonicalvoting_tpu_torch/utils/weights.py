@@ -1,6 +1,7 @@
 """Load weights into the port's modules.
 
-Three sources, one tree. The JAX package's variables are nested dicts
+Three sources, one tree, which the dense ``DenseMinkUNet`` and the sparse
+``MinkUNetBase`` share. The JAX package's variables are nested dicts
 ``{"params": {...}, "batch_stats": {...}}`` whose paths are the port's module
 paths (``block1_0/conv1/kernel`` is ``block1_0.conv1.kernel``), so
 :func:`from_jax_variables` copies them in without renaming. The upstream
@@ -111,8 +112,13 @@ def convert_state_dict(state_dict: Dict) -> Tuple[Dict, Dict]:
 
 
 def load_pth(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load an upstream ``.pth`` checkpoint into ``model``."""
+    """Load an upstream ``.pth`` checkpoint into ``model`` (a
+    ``DenseMinkUNet`` or a ``MinkUNetBase``: the same tree). The SUN RGB-D
+    checkpoint nests its state dict under ``model_state_dict``; that layout
+    is unwrapped, as the JAX package's ``load_torch_checkpoint`` does."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "model_state_dict" in sd:
+        sd = sd["model_state_dict"]
     return from_jax_variables(model, *convert_state_dict(sd))
 
 

@@ -78,6 +78,20 @@ pipelines' on the same items (the tails decode planted rows), a finite mAP
 at both thresholds; host ms of the dataset's read, transform and quantize,
 and each CLI loop's scenes/s.
 
+The sparse phase builds the three scenes' coordinate pyramids with the
+native manager, holds the dense backbone (bf16, kernels) and the
+gather-form sparse backbone (bf16) of one state dict against the sparse
+float32 backbone (the dense error at most twice the sparse one plus 1e-3
+of the float32 peak; the joint model and separate category 0), then drives
+the joint path (three scenes) and the separate path (two) with
+backbone="sparse": planted rows with junk in their padding rows give the
+dense args' detections bit for bit, and no dense-backbone kernel runs.
+The sunrgbd phase runs BRNetCanonSampler (a seeded MinkUNet34C(3, 8), 60
+rotations, 512 proposals) over four synthetic 20,000-point clouds with
+1,024 vote seeds each: output contract, determinism under one generator
+seed, frozen weights, and the 6-channel splat at its configuration against
+its plain version.
+
 The last two lines are the kernels' summary and the status line. The script
 exits non-zero, printing neither, if there is no CUDA device, if the port is
 missing, or if any phase fails.
@@ -128,6 +142,22 @@ VARIANT_PER_SCENE = {"tiled_conv3d": 47, "tiled_down2": 4, "tiled_up2": 2,
                      "tiled_up2_into": 2, "hv_splat_windowed": 1,
                      "hv_splat": 0, "tiled_block3d": 0}
 N_SEPARATE_SCENES = 2
+# the sparse path (backbone="sparse") runs none of the dense backbone's
+# kernels: one objectness splat a scene, joint or the nine categories
+SPARSE_PER_SCENE = {"tiled_conv3d": 0, "tiled_conv3d_prefolded": 0,
+                    "tiled_down2": 0, "tiled_up2": 0, "hv_splat": 1,
+                    "hv_splat6": 0, **NO_VARIANTS}
+# the dense backbone's error against the float32 sparse backbone may be at
+# most SPARSE_RATIO x the bf16 sparse backbone's plus SPARSE_FLOOR of the
+# float32 rows' peak (the dense CUDA wrappers take no float32 grids)
+SPARSE_RATIO, SPARSE_FLOOR = 2.0, 1e-3
+SPARSE_ROW_LIMIT = 0.05  # rows counted with an error above this
+SPARSE_JUNK = 1e4        # the junk in planted padding rows (exp overflows)
+# the SUN RGB-D sampler's batch: mmdetection3d's PointSample(num_points=
+# 20000) of its SUN RGB-D configs, and VoteNet/BRNet's 1024 vote seeds
+SUNRGBD_BATCH, SUNRGBD_POINTS, SUNRGBD_SEEDS = 4, 20000, 1024
+# the card the sparse and sunrgbd phases run on
+DEVICE = "cuda"
 # wrapper: (source, the TPU kernel it replaces, the CUDA kernels it launches)
 SOURCES = {
     "tiled_conv3d": ("canonicalvoting_tpu_torch/csrc/tiled_conv.cu",
@@ -413,13 +443,13 @@ def record_calls(pipe, sep, args, rows, sep_args, sep_rows):
     with patched(du, **{n: recorder(records, du, n) for n in
                         ("tiled_conv3d", "tiled_down2", "tiled_up2")}), \
             patched(hv, hv_splat=recorder(records, hv, "hv_splat")):
-        heads["joint"] = pipe.backbone(args)
+        heads["joint"] = pipe.run_backbone(args)
         pipe.tail(rows, args.coords_w, args.valid, args.grid_shape)
     with variants(pipe), \
             patched(du, tiled_up2_into=recorder(records, du, "tiled_up2_into")), \
             patched(hv, hv_splat_windowed=recorder(records, hv,
                                                    "hv_splat_windowed")):
-        pipe.backbone(args)
+        pipe.run_backbone(args)
         pipe.tail(rows, args.coords_w, args.valid, args.grid_shape)
     with patched(du, tiled_conv3d_prefolded=recorder(
             records, du, "tiled_conv3d_prefolded")):
@@ -597,6 +627,67 @@ def library_call(r):
     return lambda: F.conv3d(xs, wc, padding=k // 2)
 
 
+def splat_parts(name, got, want):
+    """The parts of a splat's grid held to their own peaks: each channel of
+    a 6-channel grid; each (category, channel) of a 6-channel call over
+    categories, plus FIXED_POINT_FLOOR; each category of an objectness call
+    over categories. None for one objectness grid."""
+    if name == "hv_splat6" and got.dim() == 4:
+        return "channels", [(got[..., c], want[..., c]) for c in range(6)], 0.0
+    if name == "hv_splat6":
+        return ("category_channels", [(got[k, ..., c], want[k, ..., c])
+                                      for k in range(got.shape[0])
+                                      for c in range(6)], FIXED_POINT_FLOOR)
+    if got.dim() == 4:
+        return "categories", list(zip(got, want)), 0.0
+    return None
+
+
+def part_errors(parts):
+    """(label, [{max_abs_err, ref_max, tol}]) of ``splat_parts``' parts:
+    each within SPLAT_REL_TOL of its own peak plus the floor."""
+    label, pairs, floor = parts
+    return label, [{"max_abs_err": e, "ref_max": m,
+                    "tol": SPLAT_REL_TOL * m + floor}
+                   for e, m in (rel_err(g, w) for g, w in pairs)]
+
+
+def splat_plain_checks(phase, records):
+    """Each recorded splat call against its plain version, part by part
+    (``splat_parts``; one objectness grid within SPLAT_REL_TOL of its
+    peak), with kernel and plain ms and the bound. Returns (the largest
+    error, the failed configurations)."""
+    import torch
+
+    import canonicalvoting_tpu_torch.ops.hv_splat as hs
+
+    kern = {"hv_splat": hs.hv_splat, "hv_splat6": hs.hv_splat6}
+    plain = {"hv_splat": hs.hv_splat_plain,
+             "hv_splat6": functools.partial(hs.hv_splat_plain, channels=6)}
+    worst, failed = 0.0, []
+    for key, r in records.items():
+        name, a, kw = r["name"], r["args"], r["kw"]
+        got, want = kern[name](*a, **kw), plain[name](*a, **kw)
+        label, rows = part_errors(splat_parts(name, got, want)
+                                  or ("grid", [(got, want)], 0.0))
+        ok = all(p["max_abs_err"] <= p["tol"] for p in rows)
+        (bound_ms, bound_by), in_range = splat_bound(
+            r, 6 if name == "hv_splat6" else 1)
+        emit({"phase": phase, "kernel": name,
+              "config": [str(v) for v in key[1:]] + [str(kw["num_rots"])],
+              label: rows, "ok": ok,
+              "kernel_ms": time_ms(lambda: kern[name](*a, **kw), 5),
+              "plain_ms": time_ms(lambda: plain[name](*a, **kw), 2),
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "in_range_votes": in_range})
+        worst = max([worst] + [p["max_abs_err"] for p in rows])
+        if not ok:
+            failed.append(key)
+        del got, want
+    torch.cuda.empty_cache()
+    return worst, failed
+
+
 def rel_err(got, want):
     err = float((got.float() - want.float()).abs().max())
     return err, float(want.float().abs().max())
@@ -671,7 +762,7 @@ def phase1_blocks(pipe, args, s, levels, by_level, failures):
         return out
 
     with patched(du.BasicBlock, forward=rec):
-        pipe.backbone(args)
+        pipe.run_backbone(args)
 
     def block_call(blk, x, occ, tiles, ts):
         a1, b1 = blk.norm1.affine()
@@ -1161,29 +1252,16 @@ def phase1(pipe, scene):
                 failures.append((key, "host sync inside the call", why))
         if name == "hv_splat_windowed":
             windowed_checks(r, got, heads, failures, extra)
-        # the splats' parts: each channel, or each category's grid, within
-        # 1e-4 of its own peak; each channel of the 6-channel call over the
-        # categories within 1e-4 of its own peak plus FIXED_POINT_FLOOR
-        parts = None
-        if name == "hv_splat6" and got.dim() == 4:
-            parts = ("channels", [(got[..., c], want[..., c]) for c in range(6)],
-                     0.0)
-        elif name == "hv_splat6":
-            parts = ("category_channels",
-                     [(got[k, ..., c], want[k, ..., c])
-                      for k in range(got.shape[0]) for c in range(6)],
-                     FIXED_POINT_FLOOR)
-        elif name in ("hv_splat", "hv_splat_windowed") and got.dim() == 4:
-            parts = ("categories", list(zip(got, want)), 0.0)
+        parts = (splat_parts(name, got, want) if name.startswith("hv_splat")
+                 else None)
         if parts is not None:
-            errs = [rel_err(g, w) for g, w in parts[1]]
-            err, scale = max(e for e, _ in errs), max(m for _, m in errs)
+            label, rows = part_errors(parts)
+            err = max(p["max_abs_err"] for p in rows)
+            scale = max(p["ref_max"] for p in rows)
             tol = SPLAT_REL_TOL * scale
-            tols = [SPLAT_REL_TOL * m + parts[2] for _, m in errs]
-            extra[parts[0]] = [{"max_abs_err": e, "ref_max": m, "tol": t}
-                               for (e, m), t in zip(errs, tols)]
-            if not all(e <= t for (e, _), t in zip(errs, tols)):
-                failures.append((key, errs))
+            extra[label] = rows
+            if not all(p["max_abs_err"] <= p["tol"] for p in rows):
+                failures.append((key, rows))
         else:
             err, scale = (rel_err(into_conv_rows(got, a, kw), into_conv_rows(want, a, kw))
                           if name == "tiled_up2_into" else rel_err(got, want))
@@ -1266,13 +1344,32 @@ def phase1(pipe, scene):
 # phase 2
 
 def run_planted(pipe, args, rows):
-    out = pipe.backbone(args)
+    out = pipe.run_backbone(args)
     res = pipe.tail(rows, args.coords_w, args.valid, args.grid_shape)
     return out, res, pipe.postprocess(res)
 
 
 def stage_times(pipe, scene):
     """Per-stage ms of one scene, synchronizing between stages."""
+    import torch
+
+    t = {}
+    t0 = time.perf_counter()
+    args = pipe.prepare_scene(scene.points, scene.rgb)
+    torch.cuda.synchronize()
+    t["prep"] = (time.perf_counter() - t0) * 1e3
+    rows = planted_rows(scene, args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run_backbone(args)
+    torch.cuda.synchronize()
+    t["backbone"] = (time.perf_counter() - t0) * 1e3
+    return {**t, **tail_stage_times(pipe, args, rows)}
+
+
+def tail_stage_times(pipe, args, rows):
+    """The lazy joint tail's splat, peel and NMS ms on ``rows``,
+    synchronizing between stages."""
     import torch
 
     from canonicalvoting_tpu_torch.decode.peeling import peel_boxes
@@ -1282,16 +1379,7 @@ def stage_times(pipe, scene):
         vote_stats_at_cell)
 
     t = {}
-    t0 = time.perf_counter()
-    args = pipe.prepare_scene(scene.points, scene.rgb)
     torch.cuda.synchronize()
-    t["prep"] = time.perf_counter() - t0
-    rows = planted_rows(scene, args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pipe.backbone(args)
-    torch.cuda.synchronize()
-    t["backbone"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     xyz, scale, cls, prob = slice_joint_heads(rows)
     scale = torch.exp(scale)
@@ -1680,7 +1768,7 @@ def phase_variants(pipe, sep, scenes):
             with variants(pipe, up_impl=up):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                pipe.backbone(a)
+                pipe.run_backbone(a)
                 torch.cuda.synchronize()
                 ms[f"backbone_{up}"].append((time.perf_counter() - t0) * 1e3)
         t_p, go_p = splat_ms(pipe, a, r, "auto")
@@ -1742,7 +1830,7 @@ def cli_hooks(rows_by_id):
     rec = {"id": None, "heads": [], "map": [], "getitem_ms": [], "t0": None,
            "t_map": None}
     base = sc.ScanNetXYZProbMultiDataset
-    joint, sep = DetectionPipeline.backbone, SeparateDetectionPipeline.backbones
+    joint, sep = DetectionPipeline.run_backbone, SeparateDetectionPipeline.backbones
     compute_map = ap.compute_map
 
     class Timed(base):
@@ -1754,7 +1842,7 @@ def cli_hooks(rows_by_id):
             rec["id"] = item[0]
             return item
 
-    def backbone(self, args):
+    def run_backbone(self, args):
         rec["heads"].append(joint(self, args).clone())
         return rows_by_id[rec["id"]]
 
@@ -1768,7 +1856,7 @@ def cli_hooks(rows_by_id):
         return compute_map(pred, gt, **kw)
 
     with patched(sc, ScanNetXYZProbMultiDataset=Timed), \
-            patched(DetectionPipeline, backbone=backbone), \
+            patched(DetectionPipeline, run_backbone=run_backbone), \
             patched(SeparateDetectionPipeline, backbones=backbones), \
             patched(ap, compute_map=recorded_map):
         yield rec
@@ -1963,6 +2051,332 @@ def phase_scannet(pipe, sep, scenes, card):
             for k in runs["joint"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# the sparse phase: the gather-form backbone on both evaluators
+
+def junk_rows(rows, valid):
+    """``rows`` with junk in the padding rows (``valid`` 0): normal draws
+    times SPARSE_JUNK, so exp of a scale overflows. The tails must drop
+    those rows."""
+    import torch
+
+    g = torch.Generator(device=rows.device).manual_seed(5)
+    noise = torch.randn(rows.shape, generator=g, device=rows.device) * SPARSE_JUNK
+    return torch.where((valid == 0)[:, None], noise, rows)
+
+
+def backbone_errors(ref, got, n):
+    """Max and mean |got - ref| over the n valid rows, and the rows with an
+    error above SPARSE_ROW_LIMIT."""
+    d = (got[:n].float() - ref[:n]).abs()
+    return {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+            "rows_above": int((d.max(1).values > SPARSE_ROW_LIMIT).sum())}
+
+
+def sparse_models(plan, state):
+    """The gather-form twins of ``plan`` (a DenseMinkUNet) in bfloat16 and in
+    float32, with the weights ``state``, on the card."""
+    from canonicalvoting_tpu_torch.models.minkunet import MinkUNetBase, sparse_plan
+
+    bf = sparse_plan(plan)
+    f32 = MinkUNetBase(**{**bf.config(), "compute_dtype": "float32"})
+    for m in (bf, f32):
+        m.load_state_dict(state, strict=True)
+    return bf.to(DEVICE).eval(), f32.to(DEVICE).eval()
+
+
+def backbone_check(model, dense_fn, dargs, sargs, plan, state):
+    """The dense backbone (bf16, kernels) and the sparse one (bf16) against
+    the sparse float32 backbone, one state dict, over the valid rows: the
+    dense error at most SPARSE_RATIO x the sparse bf16 error plus
+    SPARSE_FLOOR of the float32 rows' peak."""
+    bf, f32 = sparse_models(plan, state)
+    n = sargs.pyramid["nvalid"][0]
+    ref = f32(sargs.feats, sargs.pyramid)
+    rows = {"sparse_bf16": bf(sargs.feats, sargs.pyramid),
+            "dense_bf16": dense_fn(dargs)}
+    peak = float(ref[:n].abs().max())
+    errs = {k: backbone_errors(ref, v, n) for k, v in rows.items()}
+    limit = SPARSE_RATIO * errs["sparse_bf16"]["max_abs_err"] + SPARSE_FLOOR * peak
+    ms = {"sparse_bf16": time_ms(lambda: bf(sargs.feats, sargs.pyramid), 3),
+          "sparse_f32": time_ms(lambda: f32(sargs.feats, sargs.pyramid), 3),
+          "dense_bf16": time_ms(lambda: dense_fn(dargs), 3)}
+    ok = errs["dense_bf16"]["max_abs_err"] <= limit
+    emit({"phase": "sparse", "check": "backbones", "model": model,
+          "valid_rows": n, "f32_peak": peak, **errs, "dense_limit": limit,
+          "ok": ok, "ms": ms})
+    del bf, f32, ref, rows
+    return ok
+
+
+def sync_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = fn()
+    torch.cuda.synchronize()
+    return v, (time.perf_counter() - t0) * 1e3
+
+
+def sparse_prep(scene, pipe):
+    """(dense args, sparse args, host ms) of a scene: quantize, then the
+    sparse host prep (the pyramid timed apart) and its upload."""
+    from canonicalvoting_tpu_torch.eval.pipeline import sparse_scene_host
+
+    t0 = time.perf_counter()
+    coords, feats = quantize(scene)
+    t_q = (time.perf_counter() - t0) * 1e3
+    host, t_h = sync_ms(lambda: sparse_scene_host(
+        coords, feats, res=RES, cap_multiple=pipe.cap_multiple,
+        grid_multiple=pipe.grid_multiple))
+    sargs, t_u = sync_ms(lambda: host.upload(DEVICE))
+    dargs = pipe.prepare_quantized(coords, feats)
+    return dargs, sargs, {"quantize": t_q, "prep": t_h,
+                          "pyramid": host.pyramid_ms, "upload": t_u}
+
+
+def phase_sparse(pipe, sep, scenes):
+    """The gather-form sparse backbone (backbone="sparse") on the joint
+    path (three scenes) and the separate path (two), against the dense
+    path: pyramids, the dense-against-sparse backbone check (joint model
+    and separate category 0), planted rows with junk in the padding rows
+    through the sparse args' tails (detections bitwise equal to the dense
+    args' on clean rows), launch counts (no dense-backbone kernel), stage
+    ms and peak memory; rows 4 and 5 (lazy and non-lazy tails, joint and
+    nine categories) on the sparse args against their plain versions.
+    Returns the launches of the two timed passes."""
+    import numpy as np
+    import torch
+    from torch.func import functional_call
+
+    import canonicalvoting_tpu_torch.ops.hough_voting as hv
+    from canonicalvoting_tpu_torch.eval.pipeline import DetectionPipeline
+    from canonicalvoting_tpu_torch.eval.separate import SeparateDetectionPipeline
+
+    failures = []
+    preps = [sparse_prep(s, pipe) for s in scenes]
+    emit({"phase": "sparse", "pyramids": {
+        "host_ms": [p[2] for p in preps],
+        "table_bytes": [p[1].table_bytes for p in preps],
+        "nvalid": [list(p[1].pyramid["nvalid"]) for p in preps]}})
+
+    # the backbones: joint model, then separate category 0 (prefolded stem)
+    dargs, sargs, _ = preps[0]
+    if not backbone_check("joint", pipe.run_backbone, dargs, sargs, pipe.model,
+                          pipe.model.state_dict()):
+        failures.append("joint backbones")
+    state0 = {k: v[0] for k, v in sep.stacked.items()}
+
+    def dense_category0(a):
+        kw = {"shared": sep.shared_grids(a), "down_wt": sep.down_wt[0],
+              "stem_wt": sep.stem_wt[0]}
+        return functional_call(sep.net, state0, (
+            a.feats, a.flat, a.valid, a.dense_dims, a.tiles, a.tile_shapes), kw)
+
+    if not backbone_check("separate category 0", dense_category0, dargs, sargs,
+                          sep.plan, state0):
+        failures.append("separate backbones")
+    torch.cuda.empty_cache()
+
+    # the joint path, backbone="sparse", timed
+    spipe = DetectionPipeline(model=pipe.model, backbone="sparse", res=RES,
+                              num_rots=NUM_ROTS, peel=pipe.peel,
+                              cap_multiple=pipe.cap_multiple, device=DEVICE)
+    clean = [planted_rows(s, p[1]) for s, p in zip(scenes, preps)]
+    junked = [junk_rows(r, p[1].valid) for r, p in zip(clean, preps)]
+    want = [pipe.tail(r, p[0].coords_w, p[0].valid, p[0].grid_shape)
+            for r, p in zip(clean, preps)]
+    for p, r in zip(preps, junked):  # warm-up
+        spipe.run_backbone(p[1])
+        spipe.tail(r, p[1].coords_w, p[1].valid, p[1].grid_shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    outs = []
+    for p, r in zip(preps, junked):
+        spipe.run_backbone(p[1])
+        outs.append(spipe.tail(r, p[1].coords_w, p[1].valid, p[1].grid_shape))
+        spipe.postprocess(outs[-1])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    equal = [all(torch.equal(o[k], w[k]) for k in w) for o, w in zip(outs, want)]
+    stages = []
+    for s, p, r in zip(scenes, preps, junked):
+        _, _, host = sparse_prep(s, pipe)
+        _, t_b = sync_ms(lambda: spipe.run_backbone(p[1]))
+        stages.append({**host, "backbone": t_b,
+                       **tail_stage_times(spipe, p[1], r)})
+    joint = {"scenes_per_s": len(scenes) / elapsed, "launches": launches,
+             "n_boxes": [int(o["n_boxes"]) for o in outs],
+             "truncated": [bool(o["truncated"]) for o in outs],
+             "bitwise_equal_dense_args": equal,
+             "stage_ms": {k: float(np.median([s[k] for s in stages]))
+                          for k in stages[0]},
+             "peak_mem_gib": peak / 2 ** 30}
+    emit({"phase": "sparse", "path": "joint", "scenes": len(scenes), **joint})
+    if not all(equal):
+        failures.append(f"joint detections on sparse args differ: {equal}")
+    if min(joint["n_boxes"]) < 4:
+        failures.append(f"joint planted scenes lost boxes: {joint['n_boxes']}")
+    for n, per in SPARSE_PER_SCENE.items():
+        if launches[n] != per * len(scenes):
+            failures.append(("joint launches", n, launches[n]))
+    # rows 4 (the lazy tail) and 5 (lazy_rot_scale=False) on the sparse
+    # args, far-padded rows with junk heads, against their plain versions
+    records = {}
+    p, r = preps[0][1], junked[0]
+    with patched(hv, hv_splat=recorder(records, hv, "hv_splat"),
+                 hv_splat6=recorder(records, hv, "hv_splat6")):
+        for lazy in (True, False):
+            spipe.lazy_rot_scale = lazy
+            spipe.tail(r, p.coords_w, p.valid, p.grid_shape)
+    del spipe
+    torch.cuda.empty_cache()
+
+    # the separate path, backbone="sparse", timed
+    C = len(sep.categories)
+    ssep = SeparateDetectionPipeline(
+        model=sep.plan, categories=sep.categories, res=RES, num_rots=NUM_ROTS,
+        peel=sep.peel, backbone="sparse", device=DEVICE,
+        state_dicts=[{k: v[c] for k, v in sep.stacked.items()} for c in range(C)])
+    two = preps[:N_SEPARATE_SCENES]
+    clean = [torch.as_tensor(separate_rows(s, p[1], C), device=DEVICE)
+             for s, p in zip(scenes, two)]
+    junked = [junk_rows(r, p[1].valid) for r, p in zip(clean, two)]
+    want = [sep.tail(r, p[0]) for r, p in zip(clean, two)]
+    ssep.postprocess(ssep.run_scene(two[0][1], planted=junked[0]))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    outs = [ssep.run_scene(p[1], planted=r) for p, r in zip(two, junked)]
+    dets = [ssep.postprocess(o) for o in outs]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    s_launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    equal = [all(torch.equal(o[k], w[k]) for k in w) for o, w in zip(outs, want)]
+    with patched(hv, hv_splat=recorder(records, hv, "hv_splat"),
+                 hv_splat6=recorder(records, hv, "hv_splat6")):
+        for lazy in (True, False):
+            ssep.lazy_rot_scale = lazy
+            ssep.vote(junked[0], two[0][1])
+    ssep.lazy_rot_scale = True
+    stages = []
+    for p, r in zip(two, junked):
+        _, t_b = sync_ms(lambda: ssep.backbones(p[1]))
+        votes, t_s = sync_ms(lambda: ssep.vote(r, p[1]))
+        _, t_p = sync_ms(lambda: ssep.peel_votes(votes, p[1]))
+        stages.append({**p[2], "backbones": t_b, "splats": t_s,
+                       "batched_peel": t_p})
+    emit({"phase": "sparse", "path": "separate", "scenes": len(two),
+          "categories": C, "scenes_per_s": len(two) / elapsed,
+          "launches": s_launches, "n_boxes": [o["n_boxes"].tolist() for o in outs],
+          "detections": [len(d) for d in dets],
+          "bitwise_equal_dense_args": equal,
+          "stage_ms": {k: float(np.median([s[k] for s in stages]))
+                       for k in stages[0]},
+          "peak_mem_gib": peak / 2 ** 30})
+    if not all(equal):
+        failures.append(f"separate detections on sparse args differ: {equal}")
+    if sum(len(d) for d in dets) < len(two):
+        failures.append(f"separate planted scenes found nothing: {dets}")
+    for n, per in SPARSE_PER_SCENE.items():
+        if s_launches[n] != per * len(two):
+            failures.append(("separate launches", n, s_launches[n]))
+    del ssep
+    torch.cuda.empty_cache()
+    _, failed = splat_plain_checks("sparse", records)
+    if failed:
+        failures.append(("splats differ from their plain versions", failed))
+    assert not failures, failures
+    return {k: launches[k] + s_launches[k] for k in launches}
+
+
+# ---------------------------------------------------------------------------
+# the sunrgbd phase: the SUN RGB-D proposal sampler
+
+def sunrgbd_clouds():
+    """SUNRGBD_BATCH synthetic indoor clouds of SUNRGBD_POINTS points in
+    mmdet3d's z-up axes (the y-up scenes of make_scene, 4 x 2.5 x 4.5 m,
+    permuted) and SUNRGBD_SEEDS vote seeds a cloud, drawn from its points."""
+    import numpy as np
+
+    from canonicalvoting_tpu_torch.data.synthetic import make_scene
+
+    rng = np.random.RandomState(1)
+    clouds, seeds = [], []
+    for _ in range(SUNRGBD_BATCH):
+        s = make_scene(rng, extent=(4.0, 2.5, 4.5), n_background=17000,
+                       n_boxes=4, pts_per_box=1000)
+        pts = s.points[rng.choice(len(s.points), SUNRGBD_POINTS, replace=False)]
+        pts = np.ascontiguousarray(pts[:, [0, 2, 1]], np.float32)
+        clouds.append(pts)
+        seeds.append(pts[rng.choice(len(pts), SUNRGBD_SEEDS, replace=False)])
+    return clouds, np.stack(seeds)
+
+
+def phase_sunrgbd():
+    """BRNetCanonSampler with a seeded MinkUNet34C(3, 8) in its defaults
+    over a batch of synthetic clouds: keys and shapes, zero probs,
+    proposals inside each cloud's box, bitwise equal under one generator
+    seed, weights unchanged, one 6-channel splat a sample; row 5 at this
+    configuration against its plain version (each channel within 1e-4 of
+    its peak), timed with its bound. Returns the timed call's launches and
+    that splat's largest error."""
+    import torch
+
+    import canonicalvoting_tpu_torch.ops.hough_voting as hv
+    from canonicalvoting_tpu_torch.models.minkunet import MinkUNet34C
+    from canonicalvoting_tpu_torch.sunrgbd.brnetcanon import BRNetCanonSampler
+
+    def gen(seed):
+        return torch.Generator(device=DEVICE).manual_seed(seed)
+
+    model = MinkUNet34C(3, 8, generator=torch.Generator().manual_seed(0))
+    sampler = BRNetCanonSampler(model=model, device=DEVICE)
+    clouds, seeds = sunrgbd_clouds()
+    before = {k: v.clone() for k, v in sampler.model.state_dict().items()}
+    sampler.propose(clouds[:1], seeds[:1], gen(0))  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    out, ms = sync_ms(lambda: sampler.propose(clouds, seeds, gen(1)))
+    launches = read_counters()
+    again = sampler.propose(clouds, seeds, gen(1))
+    B, P = SUNRGBD_BATCH, sampler.num_proposal
+    checks = {
+        "shapes": (set(out) == {"proposals", "probs", "scales"}
+                   and out["proposals"].shape == (B, P, 3)
+                   and out["probs"].shape == (B, P)
+                   and out["scales"].shape == (B, P, 3)),
+        "probs_zero": bool((out["probs"] == 0).all()),
+        "inside_boxes": all(
+            bool(((out["proposals"][b].cpu().numpy() >= c.min(0) - 0.1)
+                  & (out["proposals"][b].cpu().numpy() <= c.max(0) + 0.1)).all())
+            for b, c in enumerate(clouds)),
+        "finite_scales": bool(torch.isfinite(out["scales"]).all()),
+        "bitwise_repeat": all(torch.equal(out[k], again[k]) for k in out),
+        "weights_unchanged": all(torch.equal(v, before[k]) for k, v in
+                                 sampler.model.state_dict().items()),
+        "one_splat6_a_sample": launches["hv_splat6"] == B and all(
+            v == 0 for k, v in launches.items() if k != "hv_splat6")}
+    records = {}
+    with patched(hv, hv_splat6=recorder(records, hv, "hv_splat6")):
+        sampler.propose(clouds[:1], seeds[:1], gen(1))
+    worst, failed = splat_plain_checks("sunrgbd", records)
+    checks["splat6_matches_plain"] = not failed
+    emit({"phase": "sunrgbd", "batch": B, "points": [len(c) for c in clouds],
+          "seeds": seeds.shape[1], "proposals": P, "ms_per_sample": ms / B,
+          "voxels": [sampler.prepare(c)[0].nvalid[0] for c in clouds],
+          "launches": launches, "checks": checks, "max_abs_err": worst})
+    assert all(checks.values()), checks
+    return launches, worst
+
+
 def main() -> int:
     try:
         import torch
@@ -1998,7 +2412,9 @@ def main() -> int:
               ("stem", lambda: phase_stem(sep(), scenes)),
               ("nonlazy", lambda: phase_nonlazy(pipe, sep(), scenes[0])),
               ("variants", lambda: phase_variants(pipe, sep(), scenes)),
-              ("scannet", lambda: phase_scannet(pipe, sep(), scenes, smi)))
+              ("scannet", lambda: phase_scannet(pipe, sep(), scenes, smi)),
+              ("sparse", lambda: phase_sparse(pipe, sep(), scenes)),
+              ("sunrgbd", phase_sunrgbd))
     for name, run in phases:
         try:
             done[name] = run()
@@ -2010,12 +2426,16 @@ def main() -> int:
         return 1
     # launches: the sum over the runs of the paths (phase 2, the separate
     # phase, the non-lazy phase, the variants phase, the two CLIs of the
-    # scannet phase), each counted from 0; the fused block, which no path
+    # scannet phase, the sparse phase's joint and separate passes, the
+    # sampler's batch), each counted from 0; the fused block, which no path
     # runs, counts phase 1's checks
     summary = done["phase1"]
     launches = {n: done["phase2"][0][n] + done["separate"][n]
                 + done["nonlazy"][n] + done["variants"][n] + done["scannet"][n]
-                for n in SOURCES}
+                + done["sparse"][n] + done["sunrgbd"][0][n] for n in SOURCES}
+    # row 5's largest error includes the sampler's configuration
+    summary["hv_splat6"]["max_abs_err"] = max(
+        summary["hv_splat6"]["max_abs_err"], done["sunrgbd"][1])
     launches["tiled_block3d"] = summary["tiled_block3d"]["launches"]
     kernels = []
     for name, (source, replaces, cuda_kernels) in SOURCES.items():

@@ -97,7 +97,7 @@ def planted(monkeypatch, scene):
     """The backbones run and their rows are recorded; the tails get the
     scene's planted rows."""
     heads = []
-    joint, sep = DetectionPipeline.backbone, SeparateDetectionPipeline.backbones
+    joint, sep = DetectionPipeline.run_backbone, SeparateDetectionPipeline.backbones
 
     def backbone(self, args):
         heads.append(joint(self, args))
@@ -107,7 +107,7 @@ def planted(monkeypatch, scene):
         heads.append(sep(self, args, shared))
         return _rows(scene, args, len(self.categories))
 
-    monkeypatch.setattr(DetectionPipeline, "backbone", backbone)
+    monkeypatch.setattr(DetectionPipeline, "run_backbone", backbone)
     monkeypatch.setattr(SeparateDetectionPipeline, "backbones", backbones)
     return heads
 

@@ -119,7 +119,7 @@ def test_backbone_branch_matches_jax(planted):
         var, f, fl, v, args.dense_dims, False))(variables, feats, flat, valid))
     from_jax_variables(pipe.model, variables["params"],
                        variables["batch_stats"])
-    rows = pipe.backbone(args)
+    rows = pipe.run_backbone(args)
     np.testing.assert_allclose(rows.numpy(), rows_j, atol=2e-3, rtol=1e-3)
     out = pipe.tail(rows, args.coords_w, args.valid, args.grid_shape)
     jout = jpipe._tail_fn(rows_j, args.coords_w.numpy(), valid,
@@ -152,7 +152,7 @@ def test_variants_give_the_default_boxes(planted, monkeypatch):
     # the backbone on a 1.5 m corner of the scene: it only has to run
     corner = np.all(scene.points[:, [0, 2]] < scene.points[:, [0, 2]].min(0) + 1.5, 1)
     small = default.prepare_scene(scene.points[corner], scene.rgb[corner])
-    assert bool(torch.isfinite(variant.backbone(small)).all())
+    assert bool(torch.isfinite(variant.run_backbone(small)).all())
     args = default.prepare_scene(scene.points, scene.rgb)
     assert args.grid_shape[0] % 32 == 0
     valid = args.valid.numpy() > 0

@@ -261,6 +261,11 @@ def test_default_device_is_the_gpu():
     else:
         with pytest.raises(RuntimeError, match="GPU"):
             SeparateDetectionPipeline(model=_model())
-    with pytest.raises(NotImplementedError, match="sparse"):
-        SeparateDetectionPipeline(model=_model(), backbone="sparse",
+    # backbone="sparse" is ported (tests/test_torch_sparse_pipeline.py): it
+    # defaults to the card too, and an unknown backbone raises
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="GPU"):
+            SeparateDetectionPipeline(model=_model(), backbone="sparse")
+    with pytest.raises(ValueError, match="backbone"):
+        SeparateDetectionPipeline(model=_model(), backbone="gather",
                                   device="cpu")

@@ -315,7 +315,7 @@ def main() -> int:
         return forward(blk, x, occ, tiles, ts, in_perm)
 
     with cs.patched(du.BasicBlock, forward=rec):
-        pipe.backbone(args)
+        pipe.run_backbone(args)
     torch.cuda.synchronize()
     levels = {shape: i for i, shape in enumerate(sorted(
         {tuple(b[2].shape) for b in blocks},

@@ -112,7 +112,7 @@ def main() -> int:
         return tc.tiled_down2(*a, **kw)
 
     with cs.patched(du, tiled_down2=rec):
-        pipe.backbone(args)
+        pipe.run_backbone(args)
     torch.cuda.synchronize()
     levels = []
     for lvl, (a, kw) in enumerate(calls, start=1):

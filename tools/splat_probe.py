@@ -358,7 +358,7 @@ def main() -> int:
     if opts.heads and os.path.exists(opts.heads):
         heads = {k: v.to(dev) for k, v in torch.load(opts.heads).items()}
     else:
-        heads = {"joint": pipe.backbone(args), "separate": sep.backbones(sargs)}
+        heads = {"joint": pipe.run_backbone(args), "separate": sep.backbones(sargs)}
         if opts.heads:
             torch.save({k: v.cpu() for k, v in heads.items()}, opts.heads)
     report["backbone"] = {"joint": joint(heads["joint"]),

@@ -99,7 +99,7 @@ def main() -> int:
     with cs.patched(du, tiled_up2_into=rec):
         up_impl, pipe.model.up_impl = pipe.model.up_impl, "into"
         try:
-            pipe.backbone(args)
+            pipe.run_backbone(args)
         finally:
             pipe.model.up_impl = up_impl
     torch.cuda.synchronize()
