@@ -1,10 +1,13 @@
 """The configuration keys the port's evaluators and datasets read.
 
 A subset of ``canonicalvoting_tpu/config.py`` with the same names and
-defaults (upstream ``config/config.yaml``): the ``data.*`` paths,
-``scannet_res``, ``log_scale``, ``use_xyz``, ``category``, ``augment``,
-``augment_color``, ``in_channels``, ``tpu.max_boxes`` and
-``tpu.conv_dtype``. Values come from an optional YAML file, then from
+defaults (upstream ``config/config.yaml``): the ``data.*`` paths, the
+evaluators' keys (``scannet_res``, ``log_scale``, ``use_xyz``,
+``category``, ``augment``, ``augment_color``, ``in_channels``,
+``tpu.max_boxes``, ``tpu.conv_dtype``) and the trainers' (``num_workers``,
+``max_epoch``, ``batch_size``, the loss factors and weights, ``opt.*``,
+``tpu.point_buckets``, ``tpu.max_objects`` and the ``tpu.train_*`` and
+``tpu.mesh_*`` keys). Values come from an optional YAML file, then from
 hydra-style ``key=value`` overrides, each cast to the type of the field it
 sets. ``yaml`` is imported only when a file is given.
 """
@@ -29,27 +32,75 @@ class DataConfig:
 
 
 @dataclass
+class OptConfig:
+    # upstream config/config.yaml:31-36
+    learning_rate: float = 1e-3
+    bn_decay_step: int = 20
+    bn_decay_rate: float = 0.5
+    lr_decay_steps: str = "80,120,160"
+    lr_decay_rates: str = "0.1,0.1,0.1"
+
+
+@dataclass
 class TPUConfig:
     # the section keeps the JAX package's name so YAML files and overrides
     # (tpu.max_boxes=...) carry over unchanged
     max_boxes: int = 64
     conv_dtype: str = "bfloat16"
+    # the trainers' row capacity multiple is the first bucket
+    point_buckets: tuple = (4096, 16384, 32768, 65536, 131072, 262144)
+    # objects a separate-training batch holds for the symmetry loss
+    max_objects: int = 64
+    # "auto" and "gather": the gather-form sparse backbone; "dense" (the
+    # masked dense twin) is not ported
+    train_backbone: str = "auto"
+    # the JAX package's block remat; the port keeps every activation
+    train_remat: bool = False
+    # scenes a gradient-accumulation microbatch; 0: the whole batch
+    train_microbatch: int = 0
+    # conv sites the JAX package routes through its scatter-dense engine;
+    # the port runs the gather form at every site (train/steps.py)
+    train_dense_levels: str = "stem"
+    # data-parallel mesh; only 1 x 1 is ported
+    mesh_data: int = 1
+    mesh_model: int = 1
 
 
 @dataclass
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
     scannet_res: float = 0.03
+    num_workers: int = 10
+    max_epoch: int = 160
+    batch_size: int = 3
     log_scale: bool = True
+    scale_factor: float = 1.0
+    xyz_factor: float = 1.0
     augment_color: bool = False
     augment: bool = True
+    start_epoch: int = 0
+    xyz_component_weights: str = "1,1,1"
+    weight_decay: float = 0.0
     use_xyz: bool = False
     category: str = "all"
+    opt: OptConfig = field(default_factory=OptConfig)
     tpu: TPUConfig = field(default_factory=TPUConfig)
 
     @property
     def in_channels(self) -> int:
         return 6 if self.use_xyz else 3
+
+    @property
+    def xyz_weights(self):
+        return [float(x) for x in self.xyz_component_weights.split(",")]
+
+    @property
+    def lr_decay_steps(self):
+        return [int(x) for x in self.opt.lr_decay_steps.split(",")]
+
+    @property
+    def lr_decay_rates(self):
+        return [float(x) for x in self.opt.lr_decay_rates.split(",")]
 
 
 def _set(obj, path: str, value) -> None:
@@ -65,6 +116,8 @@ def _set(obj, path: str, value) -> None:
             value = value.lower() in ("1", "true", "yes", "on")
         elif isinstance(current, (int, float)):
             value = type(current)(value)
+        elif isinstance(current, tuple):
+            value = tuple(int(x) for x in value.strip("()").split(","))
     setattr(obj, name, value)
 
 

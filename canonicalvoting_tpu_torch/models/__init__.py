@@ -20,6 +20,7 @@ from canonicalvoting_tpu_torch.models.minkunet import (  # noqa: F401
     MinkUNet50,
     MinkUNet101,
     MinkUNetBase,
+    dense_twin,
     sparse_plan,
     sparse_twin,
 )

@@ -12,8 +12,9 @@ endpoints are here.
 
 Module names are the JAX tree's (``conv0p1s1``, ``bn0``, ``block1_0``,
 ``convtr4p16s2``, ``final``, ...), which ``DenseMinkUNet`` shares: one state
-dict loads into either model (basic blocks), and :func:`sparse_twin` runs a
-dense model's weights on the gather-form backbone.
+dict loads into either model (basic blocks): :func:`sparse_twin` runs a
+dense model's weights on the gather-form backbone, :func:`dense_twin` a
+sparse model's (a trained one) on the dense backbone.
 
 The forward takes the pyramid's tables on the device (``PyramidArrays.to``):
 rows past ``nvalid`` are padding, which no valid row reads; their outputs
@@ -177,4 +178,20 @@ def sparse_twin(dense: DenseMinkUNet) -> MinkUNetBase:
     m = sparse_plan(dense)
     m.load_state_dict(dense.state_dict(), strict=True)
     return m.to(next(dense.parameters()).device)
+
+
+def dense_twin(sparse: MinkUNetBase) -> DenseMinkUNet:
+    """A ``DenseMinkUNet`` with ``sparse``'s plan and weights (a copy), on
+    its device: the dense backbone of the evaluators runs a model trained on
+    the gather form. Basic blocks only, as the dense model has."""
+    if sparse.block != "basic":
+        raise ValueError(f"the dense backbone has basic blocks only, not "
+                         f"{sparse.block!r}")
+    m = DenseMinkUNet(sparse.in_channels, sparse.out_channels,
+                      layers=sparse.layers, planes=sparse.planes,
+                      init_dim=sparse.init_dim, stem_kernel=sparse.stem_kernel,
+                      compute_dtype=sparse.compute_dtype)
+    m.load_state_dict({k: v.detach().cpu() for k, v in sparse.state_dict().items()},
+                      strict=True)
+    return m.to(next(sparse.parameters()).device)
 

@@ -1,7 +1,9 @@
 """Load weights into the port's modules.
 
 Three sources, one tree, which the dense ``DenseMinkUNet`` and the sparse
-``MinkUNetBase`` share. The JAX package's variables are nested dicts
+``MinkUNetBase`` share, and the way back: :func:`to_jax_variables` gives a
+model's weights as the JAX tree and :func:`reference_state_dict_template`
+that tree in the upstream layout. The JAX package's variables are nested dicts
 ``{"params": {...}, "batch_stats": {...}}`` whose paths are the port's module
 paths (``block1_0/conv1/kernel`` is ``block1_0.conv1.kernel``), so
 :func:`from_jax_variables` copies them in without renaming. The upstream
@@ -37,12 +39,21 @@ from canonicalvoting_tpu_torch.data.geometry import NAME2CATNAME
 from canonicalvoting_tpu_torch.models.dense_unet import DenseMinkUNet
 
 
-def _leaves(tree: Dict, prefix: str = ""):
+def flatten(tree: Dict, prefix: str = ""):
+    """(dotted path, leaf) of every leaf of a nested dict."""
     for k, v in tree.items():
         if isinstance(v, dict):
-            yield from _leaves(v, f"{prefix}{k}.")
+            yield from flatten(v, f"{prefix}{k}.")
         else:
             yield prefix + k, v
+
+
+def nest(flat: Dict) -> Dict:
+    """Dotted paths -> the nested dict (the inverse of :func:`flatten`)."""
+    tree: Dict = {}
+    for name, v in flat.items():
+        _assign(tree, name.split("."), v)
+    return tree
 
 
 def _f32(v) -> torch.Tensor:
@@ -53,8 +64,8 @@ def _f32(v) -> torch.Tensor:
 
 def jax_state_dict(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
     """A JAX variables tree (numpy arrays) as the port's float32 state dict."""
-    state = {name: _f32(v) for name, v in _leaves(params)}
-    state.update({name: _f32(v) for name, v in _leaves(batch_stats)})
+    state = {name: _f32(v) for name, v in flatten(params)}
+    state.update({name: _f32(v) for name, v in flatten(batch_stats)})
     return state
 
 
@@ -64,6 +75,53 @@ def from_jax_variables(model: torch.nn.Module, params: Dict,
     parameter and buffer of the model must be covered, and nothing else."""
     model.load_state_dict(jax_state_dict(params, batch_stats), strict=True)
     return model
+
+
+def to_jax_variables(model: torch.nn.Module) -> Dict:
+    """The model's weights as a JAX variables tree of float32 numpy arrays:
+    ``params`` from its parameters, ``batch_stats`` from its buffers (the BN
+    running statistics), under their module paths."""
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    return {"params": nest({n: host(t) for n, t in model.named_parameters()}),
+            "batch_stats": nest({n: host(t) for n, t in model.named_buffers()})}
+
+
+def reference_state_dict_template(variables: Dict) -> Dict[str, np.ndarray]:
+    """A JAX variables tree in the upstream (MinkowskiEngine) state-dict
+    layout, numpy values: the inverse of :func:`convert_state_dict`, as the
+    JAX package's ``utils/torch_convert.py`` maps it."""
+    out = {}
+
+    def is_norm(prefix):
+        stripped = prefix.rstrip(".")
+        last = stripped.split(".")[-1]
+        return (last.startswith(("bn", "norm", "bntr"))
+                or stripped.endswith("downsample.1"))
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                m = re.match(r"^(block\d+)_(\d+)$", k)
+                mod = f"{m.group(1)}.{m.group(2)}" if m else k
+                mod = mod.replace("downsample_conv", "downsample.0")
+                mod = mod.replace("downsample_norm", "downsample.1")
+                walk(v, prefix + mod + ".")
+                continue
+            v = np.asarray(v)
+            if k in ("scale", "bias") and is_norm(prefix):
+                out[prefix + "bn." + ("weight" if k == "scale" else "bias")] = v
+            elif k in ("mean", "var"):
+                out[prefix + "bn.running_" + k] = v
+            elif k == "kernel":
+                out[prefix + "kernel"] = v[0] if v.shape[0] == 1 else v
+            else:
+                out[prefix + k] = v
+
+    walk(variables.get("params", {}), "")
+    walk(variables.get("batch_stats", {}), "")
+    return out
 
 
 def _assign(tree: Dict, path, value):

@@ -91,6 +91,18 @@ rotations, 512 proposals) over four synthetic 20,000-point clouds with
 1,024 vote seeds each: output contract, determinism under one generator
 seed, frozen weights, and the 6-channel splat at its configuration against
 its plain version.
+The train phase holds the sparse conv's backward (the autograd Function of
+ops/sparse_conv.py) on the card to its plain route at one conv per level of
+the joint MinkUNet34C on scene 0's pyramid and a 1x1 (dX and dW within 1%
+of each output's peak, the backward timed both ways, one call under the
+sync debug mode), then times the joint train step at full width on the
+three scenes (bf16, microbatch 0 and 1: step ms, host collate ms, peak
+memory), holds its gradients to a float32 step's, checks that five steps
+lower the loss and move the BN statistics, times the separate step (one
+category, symmetry labels), and runs both training loops with process
+workers on six smaller scenes: two validated epochs (the dense kernels'
+launches counted), a checkpoint each, and a second call (thread workers)
+that resumes.
 
 The last two lines are the kernels' summary and the status line. The script
 exits non-zero, printing neither, if there is no CUDA device, if the port is
@@ -2377,6 +2389,426 @@ def phase_sunrgbd():
     return launches, worst
 
 
+# ---------------------------------------------------------------------------
+# the train phase: the sparse conv's backward, the train steps and loops
+
+# the card route's dX and dW against the plain route's, of each output's
+# peak: both round d_gathered and dW to bf16 after float32 sums (the card's
+# route rounds dY to bf16 first)
+TRAIN_CONV_TOL = 1e-2
+# the bf16 step's gradients against the float32 step's on one batch and
+# weights: each parameter tensor's relative L2 error at most
+# TRAIN_GRAD_WORST, all of them together at most TRAIN_GRAD_GLOBAL, and the
+# head's (final.kernel) at most TRAIN_HEAD_GRAD (PERF.md gives their grounds)
+TRAIN_GRAD_WORST, TRAIN_GRAD_GLOBAL, TRAIN_HEAD_GRAD = 2.0, 0.9, 0.05
+TRAIN_REPS = 3        # timed steps, after one warm-up
+TRAIN_DESCENT = 5     # steps on the fixed batch that must lower the loss
+# the loops' scenes: the JAX train_joint.py --synthetic recipe's size
+LOOP_SCENES, LOOP_VAL = 6, 1
+# the launches of one validation scene: joint (rows 1-4) and one category
+# of the separate evaluator (rows 1-4 and 6); the objectness splat runs
+# once a tail, and a budget exit re-runs the tail
+VAL_JOINT = {"tiled_conv3d": 47, "tiled_down2": 4, "tiled_up2": 4,
+             "tiled_conv3d_prefolded": 0, "hv_splat6": 0, **NO_VARIANTS}
+VAL_SEPARATE = {"tiled_conv3d": 46, "tiled_conv3d_prefolded": 1,
+                "tiled_down2": 4, "tiled_up2": 4, "hv_splat6": 0, **NO_VARIANTS}
+
+
+def train_items(scenes, res=RES):
+    """(joint items, separate items) of synthetic scenes: quantized points,
+    rgb and labels; the separate items add object ids (points inside a
+    box) and a symmetry code a box, as the JAX package's
+    train_separate.py --synthetic builds them."""
+    import numpy as np
+
+    from canonicalvoting_tpu_torch.data.geometry import NCLASSES, rotmat_y
+    from canonicalvoting_tpu_torch.ops.voxelize import sparse_quantize
+
+    joint, separate = [], []
+    for i, s in enumerate(scenes):
+        coords, idx = sparse_quantize(s.points, res)
+        cls = s.class_labels[idx]
+        joint.append((f"scene{i}", coords, s.rgb[idx], s.xyz_labels[idx],
+                      s.scale_labels[idx], cls))
+        pw = coords.astype(np.float32) * res
+        oid = np.full(len(coords), -1, np.int32)
+        for bi, b in enumerate(s.boxes):
+            inv = ((pw - b.center) @ rotmat_y(b.yaw)) / b.scale
+            oid[np.all(np.abs(inv) < 1, -1)] = bi
+        sym = np.array([bi % 4 for bi in range(len(s.boxes))], np.int32)
+        separate.append(joint[-1][:5] + ((cls < NCLASSES).astype(np.int32),
+                                         cls, oid, sym))
+    return joint, separate
+
+
+def train_conv_configs(pyr):
+    """One conv per level of the joint MinkUNet34C at a pyramid's tables:
+    (name, table or None for the 1x1, input rows, Cin, Cout)."""
+    n = [c.shape[0] for c in pyr.coords]
+    return [("stem L0 k=5", pyr.nbr_stem, n[0], 3, 32),
+            ("block8 L0 k=3", pyr.nbr_conv[0], n[0], 96, 96),
+            ("block7 L1 k=3", pyr.nbr_conv[1], n[1], 96, 96),
+            ("block6 L2 k=3", pyr.nbr_conv[2], n[2], 128, 128),
+            ("block5 L3 k=3", pyr.nbr_conv[3], n[3], 256, 256),
+            ("block4 L4 k=3", pyr.nbr_conv[4], n[4], 256, 256),
+            ("conv1p1s2 L0->L1 k=2", pyr.nbr_down[0], n[0], 32, 32),
+            ("convtr7p2s2 L1->L0 k=2", pyr.nbr_up[0], n[1], 96, 96),
+            ("final L0 1x1", None, n[0], 96, 64)]
+
+
+def train_conv_check(i, name, nbr, n_in, cin, cout):
+    """The sparse conv's card route (forward, then the Function's backward)
+    against its plain route (the float32 products of the same backward) on
+    random inputs at one configuration; the backward timed both ways."""
+    import torch
+
+    from canonicalvoting_tpu_torch.ops import sparse_conv as sc
+
+    g = torch.Generator(device=DEVICE).manual_seed(100 + i)
+    k = 1 if nbr is None else nbr.shape[1]
+    n_out = n_in if nbr is None else nbr.shape[0]
+    x = torch.randn(n_in, cin, device=DEVICE, generator=g).requires_grad_()
+    w = (torch.randn(k, cin, cout, device=DEVICE, generator=g)
+         * (2.0 / (k * cout)) ** 0.5).requires_grad_()
+    dy = torch.randn(n_out, cout, device=DEVICE, generator=g)
+    w2 = w.detach().bfloat16().reshape(k * cin, cout)
+
+    def forward():
+        if nbr is None:
+            return sc.sparse_conv1x1(x, w)
+        return sc.sparse_conv_apply(x, nbr, w)
+
+    forward().backward(dy)
+    if nbr is None:
+        a = x.detach().bfloat16()
+
+        def grads(plain):
+            return (sc.grad_matmul(dy, w2.t(), plain).bfloat16().float(),
+                    sc.grad_matmul(a.t(), dy, plain).bfloat16())
+    else:
+        src = torch.cat([x.detach().bfloat16(),
+                         x.new_zeros(1, cin, dtype=torch.bfloat16)])
+        idx = sc.conv_index(nbr, n_in)
+
+        def grads(plain):
+            return sc.gather_matmul_grads(src, idx, w2, dy, plain=plain)
+
+    pdx, pdw = grads(True)
+    errs = {}
+    for part, got, want in (("dx", x.grad, pdx),
+                            ("dw", w.grad, pdw.float().reshape(k, cin, cout))):
+        peak = float(want.abs().max())
+        err = float((got - want).abs().max())
+        errs[part] = {"max_abs_err": err, "peak": peak, "ok": err <= TRAIN_CONV_TOL * peak}
+    with torch.no_grad():
+        ms = {"forward": time_ms(forward, 5),
+              "backward_card": time_ms(lambda: grads(False), 5),
+              "backward_plain": time_ms(lambda: grads(True), 5)}
+    x.grad = w.grad = None
+    return {"conv": name, "rows_out": n_out, "rows_in": n_in, "k": k,
+            "cin": cin, "cout": cout, **errs, "ms": ms}
+
+
+def train_step_run(step, state, batch, reps=TRAIN_REPS):
+    """(losses of the first call, median step ms, peak GiB) of one warm-up
+    step and ``reps`` timed ones on ``batch``, each synchronized."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses = step(state, batch, 1e-3, 0.5)
+    times = []
+    for _ in range(reps):
+        _, t = sync_ms(lambda: step(state, batch, 1e-3, 0.5))
+        times.append(t)
+    return ({k: float(v) for k, v in losses.items()}, float(np.median(times)),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def step_profile(step, state, batch):
+    """One step under torch.profiler: wall ms, the card's busy ms (kernels'
+    self time), the idle share, and the kernels that took the most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):  # the attribute's name before torch 2.4: self_cuda_*
+        us = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if us is None else us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, 1e-3, 0.5)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the kernels alone: an operator's row repeats its kernels' time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy = sum(device_us(e) for e in events) / 1e3
+    top = sorted(events, key=device_us, reverse=True)[:12]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall),
+            "top": [{"name": e.key[:90], "ms": device_us(e) / 1e3,
+                     "calls": e.count} for e in top]}
+
+
+def allocated_gib():
+    import torch
+
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def grad_errors(ref_model, model):
+    """Each parameter tensor's relative L2 error of ``model``'s gradient
+    against ``ref_model``'s, and all of them together."""
+    import torch
+
+    ref = dict(ref_model.named_parameters())
+    per = {n: float((p.grad - ref[n].grad).norm() / ref[n].grad.norm())
+           for n, p in model.named_parameters()}
+    a = torch.cat([p.grad.flatten() for _, p in model.named_parameters()])
+    b = torch.cat([ref[n].grad.flatten() for n, _ in model.named_parameters()])
+    return per, float((a - b).norm() / b.norm()), float(a @ b / (a.norm() * b.norm()))
+
+
+def loop_checks(name, state, ret, launches, per_scene, n_val, validations,
+                workdir, epochs):
+    """The loop's result: every epoch trained and checkpointed, a finite mAP
+    at both thresholds, and the validations on the dense kernels."""
+    import math
+    import os
+
+    ckpts = sorted(f for f in os.listdir(workdir) if f.endswith(".ckpt"))
+    checks = {
+        "checkpoints": ckpts == sorted(f"epoch{e}.ckpt" for e in epochs),
+        "finite_map": ret is not None and all(
+            math.isfinite(ret[t]["mAP"]) and math.isfinite(ret[t]["AR"])
+            for t in (0.25, 0.5)),
+        "kernel_launches": all(launches[k] == v * n_val * validations
+                               for k, v in per_scene.items()),
+        "splats": launches["hv_splat"] >= n_val * validations}
+    assert all(checks.values()), (name, checks, launches)
+    return checks
+
+
+def phase_train(scenes):
+    """Training on the card: the sparse conv's Function against its plain
+    route at one conv per level of the joint MinkUNet34C (scene 0's
+    pyramid, and one call under the sync debug mode); the joint step at
+    full width on the three scenes (bf16, microbatch 0 and 1: step ms,
+    host collate ms, peak memory; the bf16 gradients against a float32
+    step; five steps lowering the loss, the BN statistics moving and
+    finite); the separate step (MinkUNet34C(3, 8), symmetry labels); both
+    training loops with validation on the dense kernels, a checkpoint a
+    validated epoch and a resumed second call. Returns the loops' kernel
+    launches (their validations)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from canonicalvoting_tpu_torch.config import load_config
+    from canonicalvoting_tpu_torch.data.geometry import IDX2NAME, NAME2CATNAME
+    from canonicalvoting_tpu_torch.data.collate import (
+        collate_joint, collate_separate)
+    from canonicalvoting_tpu_torch.data.loader import ListDataset
+    from canonicalvoting_tpu_torch.data.synthetic import make_scene
+    from canonicalvoting_tpu_torch.models.minkunet import MinkUNet34C
+    from canonicalvoting_tpu_torch.ops.coords import PyramidSpec, build_pyramid
+    from canonicalvoting_tpu_torch.ops.voxelize import batched_coordinates
+    from canonicalvoting_tpu_torch.train import steps
+    from canonicalvoting_tpu_torch.train.joint_loop import run_joint_training
+    from canonicalvoting_tpu_torch.train.separate_loop import run_separate_training
+
+    t_phase = time.perf_counter()
+    failures = []
+    joint_items, sep_items = train_items(scenes)
+    cfg = load_config(None, [])
+
+    with torch.enable_grad():
+        # 1. the Function, card route against the plain route
+        pyr = build_pyramid(batched_coordinates([joint_items[0][1]]),
+                            PyramidSpec(cap_multiple=4096))
+        tabs, _ = pyr.to(DEVICE)
+        # the device tables in train_conv_configs' order (the 1x1 has none)
+        tabs = [tabs["nbr_stem"], *tabs["nbr_conv"], tabs["nbr_down"][0],
+                tabs["nbr_up"][0], None]
+        configs = train_conv_configs(pyr)
+        convs = []
+        for i, ((name, _, n_in, cin, cout), nbr) in enumerate(zip(configs, tabs)):
+            convs.append(train_conv_check(i, name, nbr, n_in, cin, cout))
+            emit({"phase": "train", "check": "conv", **convs[-1]})
+            if not (convs[-1]["dx"]["ok"] and convs[-1]["dw"]["ok"]):
+                failures.append(("conv grads", name))
+        n0 = configs[1][2]
+        x = torch.randn(n0, 96, device=DEVICE, requires_grad=True)
+        w = torch.randn(27, 96, 96, device=DEVICE, requires_grad=True)
+        dy = torch.randn(tabs[1].shape[0], 96, device=DEVICE)
+
+        from canonicalvoting_tpu_torch.ops.sparse_conv import sparse_conv_apply
+
+        free, err = sync_free(
+            lambda: sparse_conv_apply(x, tabs[1], w).backward(dy))
+        emit({"phase": "train", "check": "sync_free", "conv": configs[1][0],
+              "ok": free, "error": err})
+        if not free:
+            failures.append(("host sync in the conv's backward", err))
+        del x, w, dy, tabs
+        torch.cuda.empty_cache()
+
+        # 2. the joint step at full width, whole batch and microbatch 1
+        def joint_model(dtype):
+            return MinkUNet34C(3, 64, compute_dtype=dtype,
+                               generator=torch.Generator().manual_seed(0))
+
+        joint = {}
+        for mb in (0, 1):
+            batch, t_c = sync_ms(lambda: collate_joint(
+                joint_items, cap_multiple=4096, microbatch=mb))
+            base = allocated_gib()  # the earlier phases' models and scenes
+            state = steps.create_train_state(joint_model("bfloat16"), 0.0, DEVICE)
+            step = steps.make_joint_train_step(state.model, cfg)
+            losses, ms, peak = train_step_run(step, state, batch)
+            joint[mb] = {"step_ms": ms, "collate_ms": t_c, "peak_gib": peak,
+                         "peak_above_base_gib": peak - base, "losses": losses}
+            if mb == 0:
+                joint[mb]["profile"] = step_profile(step, state, batch)
+            del state, step
+            torch.cuda.empty_cache()
+        whole = collate_joint(joint_items, cap_multiple=4096)
+        emit({"phase": "train", "step": "joint", "scenes": len(joint_items),
+              "voxels": [int(len(it[1])) for it in joint_items],
+              "rows_l0": int(whole["feats"].shape[0]),
+              **{f"microbatch_{k}": v for k, v in joint.items()}})
+
+        # the bf16 step's gradients against a float32 step's
+        models = {}
+        for dtype in ("bfloat16", "float32"):
+            state = steps.create_train_state(joint_model(dtype), 0.0, DEVICE)
+            steps.make_joint_train_step(state.model, cfg)(state, whole, 1e-3, 0.5)
+            models[dtype] = state
+        per, glob, cos = grad_errors(models["float32"].model,
+                                     models["bfloat16"].model)
+        worst = max(per, key=per.get)
+        vals = sorted(per.values())
+        grads_ok = (per[worst] <= TRAIN_GRAD_WORST and glob <= TRAIN_GRAD_GLOBAL
+                    and per["final.kernel"] <= TRAIN_HEAD_GRAD)
+        emit({"phase": "train", "check": "bf16_grads_vs_f32", "tensors": len(per),
+              "worst": {"tensor": worst, "rel_l2": per[worst]},
+              "median_rel_l2": float(np.median(vals)), "global_rel_l2": glob,
+              "cosine": cos, "head_rel_l2": per["final.kernel"],
+              "bounds": [TRAIN_GRAD_WORST, TRAIN_GRAD_GLOBAL, TRAIN_HEAD_GRAD],
+              "ok": grads_ok, "rel_l2": per})
+        if not grads_ok:
+            failures.append(("bf16 gradients", worst, per[worst], glob))
+        del models
+        torch.cuda.empty_cache()
+
+        # five steps on the fixed batch lower the loss; BN statistics move
+        state = steps.create_train_state(joint_model("bfloat16"), 0.0, DEVICE)
+        step = steps.make_joint_train_step(state.model, cfg)
+        before = {n: b.clone() for n, b in state.model.named_buffers()}
+        curve = [float(step(state, whole, 1e-3, 0.5)[1]["loss"])
+                 for _ in range(TRAIN_DESCENT + 1)]
+        moved = sum(not torch.equal(b, before[n])
+                    for n, b in state.model.named_buffers())
+        finite = all(bool(torch.isfinite(b).all())
+                     for b in state.model.buffers())
+        descent_ok = (curve[-1] < curve[0] and moved == len(before) and finite
+                      and all(np.isfinite(curve)))
+        emit({"phase": "train", "check": "descent", "losses": curve,
+              "bn_buffers_moved": moved, "bn_buffers": len(before),
+              "finite": finite, "ok": descent_ok})
+        if not descent_ok:
+            failures.append(("loss did not fall", curve, moved, finite))
+        del state, step, whole
+        torch.cuda.empty_cache()
+
+        # 3. the separate step, one category
+        sbatch, t_c = sync_ms(lambda: collate_separate(
+            sep_items, cap_multiple=4096, max_objects=cfg.tpu.max_objects))
+        base = allocated_gib()
+        state = steps.create_train_state(
+            MinkUNet34C(3, 8, generator=torch.Generator().manual_seed(1)), 0.0,
+            DEVICE)
+        sstep = steps.make_separate_train_step(state.model, cfg,
+                                               cfg.tpu.max_objects)
+        losses, ms, peak = train_step_run(sstep, state, sbatch)
+        emit({"phase": "train", "step": "separate", "scenes": len(sep_items),
+              "objects": int(sbatch["num_objects"]), "step_ms": ms,
+              "collate_ms": t_c, "peak_gib": peak,
+              "peak_above_base_gib": peak - base, "losses": losses})
+        if not all(np.isfinite(list(losses.values()))):
+            failures.append(("separate losses", losses))
+        del state, sstep, sbatch
+        torch.cuda.empty_cache()
+
+    # 4. the loops: LOOP_SCENES synthetic scenes (the JAX --synthetic
+    # recipe's 4 x 2 x 4 m rooms), batch 3, process workers, two epochs
+    # validated, then a second call that resumes and trains a third
+    rng = np.random.RandomState(11)
+    loop_scenes = [make_scene(rng, extent=(4.0, 2.0, 4.0), n_background=15000,
+                              n_boxes=3, pts_per_box=2000)
+                   for _ in range(LOOP_SCENES + LOOP_VAL)]
+    lj, ls = train_items(loop_scenes)
+    gts = {it[0]: [(NAME2CATNAME[IDX2NAME[ci]], c) for ci, c in s.gt_corners()]
+           for it, s in zip(lj, loop_scenes)}
+    cfg = load_config(None, ["batch_size=3", "num_workers=3",
+                             "category=03001627"])
+    # the resumed call collates in threads: no second worker pool to start
+    cfg_resume = load_config(None, ["batch_size=3", "num_workers=1",
+                                    "category=03001627"])
+    runs, launches_sum = {}, {n: 0 for n in SOURCES}
+    for name, run, items, per in (
+            ("joint", run_joint_training, lj, VAL_JOINT),
+            ("separate", run_separate_training, ls, VAL_SEPARATE)):
+        with tempfile.TemporaryDirectory() as workdir:
+            train_ds = ListDataset(items[:LOOP_SCENES])
+            val_ds = ListDataset(items[LOOP_SCENES:])
+            reset_counters()
+            state, ret = run(cfg, train_ds, val_ds, workdir=workdir,
+                             gt_lookup=gts.get, eval_every=1, max_epoch=1,
+                             device=DEVICE)
+            launches = read_counters()
+            checks = loop_checks(name, state, ret, launches, per, LOOP_VAL, 2,
+                                 workdir, (0, 1))
+            first = list(state.history)
+            reset_counters()
+            state2, ret2 = run(cfg_resume, train_ds, val_ds, workdir=workdir,
+                               gt_lookup=gts.get, eval_every=1, max_epoch=2,
+                               device=DEVICE)
+            launches2 = read_counters()
+            loop_checks(name, state2, ret2, launches2, per, LOOP_VAL, 1,
+                        workdir, (0, 1, 2))
+            resumed = ([h["epoch"] for h in state2.history] == [2]
+                       and state2.step
+                       == state.step + state2.history[0]["batches"])
+            for n in SOURCES:
+                launches_sum[n] += launches[n] + launches2[n]
+            runs[name] = {
+                "epochs": first + state2.history,
+                "scenes_per_s": [h["scenes"] / h["seconds"]
+                                 for h in first + state2.history],
+                "map": {str(t): ret2[t]["mAP"] for t in (0.25, 0.5)},
+                "launches": launches, "resume_launches": launches2,
+                "checks": checks, "resumed": resumed}
+            emit({"phase": "train", "loop": name, "train_scenes": LOOP_SCENES,
+                  "val_scenes": LOOP_VAL, "batch_size": cfg.batch_size,
+                  "workers": cfg.num_workers,
+                  "resume_workers": cfg_resume.num_workers, **runs[name]})
+            if not resumed:
+                failures.append((name, "loop did not resume",
+                                 state2.history, state2.step))
+            del state, state2
+            torch.cuda.empty_cache()
+    emit({"phase": "train", "total_s": time.perf_counter() - t_phase,
+          "failures": failures})
+    assert not failures, failures
+    return launches_sum
+
+
 def main() -> int:
     try:
         import torch
@@ -2414,7 +2846,8 @@ def main() -> int:
               ("variants", lambda: phase_variants(pipe, sep(), scenes)),
               ("scannet", lambda: phase_scannet(pipe, sep(), scenes, smi)),
               ("sparse", lambda: phase_sparse(pipe, sep(), scenes)),
-              ("sunrgbd", phase_sunrgbd))
+              ("sunrgbd", phase_sunrgbd),
+              ("train", lambda: phase_train(scenes)))
     for name, run in phases:
         try:
             done[name] = run()
@@ -2427,12 +2860,13 @@ def main() -> int:
     # launches: the sum over the runs of the paths (phase 2, the separate
     # phase, the non-lazy phase, the variants phase, the two CLIs of the
     # scannet phase, the sparse phase's joint and separate passes, the
-    # sampler's batch), each counted from 0; the fused block, which no path
-    # runs, counts phase 1's checks
+    # sampler's batch, the training loops' validations), each counted from
+    # 0; the fused block, which no path runs, counts phase 1's checks
     summary = done["phase1"]
     launches = {n: done["phase2"][0][n] + done["separate"][n]
                 + done["nonlazy"][n] + done["variants"][n] + done["scannet"][n]
-                + done["sparse"][n] + done["sunrgbd"][0][n] for n in SOURCES}
+                + done["sparse"][n] + done["sunrgbd"][0][n] + done["train"][n]
+                for n in SOURCES}
     # row 5's largest error includes the sampler's configuration
     summary["hv_splat6"]["max_abs_err"] = max(
         summary["hv_splat6"]["max_abs_err"], done["sunrgbd"][1])

@@ -184,8 +184,8 @@ def test_default_device_is_the_gpu():
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import neither jax,
-    flax, msgpack nor anything of canonicalvoting_tpu, and h5py and yaml
-    only inside the functions that read such files."""
+    flax, optax, msgpack nor anything of canonicalvoting_tpu, and h5py and
+    yaml only inside the functions that read such files."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import canonicalvoting_tpu_torch as p\n"
@@ -193,8 +193,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'canonicalvoting_tpu',\n"
-        "              'msgpack', 'h5py', 'yaml'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "              'canonicalvoting_tpu', 'msgpack', 'h5py', 'yaml'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -219,5 +219,5 @@ def test_port_imports_no_jax():
                 continue
             for m in mods:
                 assert m.split(".")[0] not in (
-                    "jax", "jaxlib", "flax", "msgpack",
+                    "jax", "jaxlib", "flax", "optax", "msgpack",
                     "canonicalvoting_tpu"), (path, m)
