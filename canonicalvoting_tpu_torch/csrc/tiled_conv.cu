@@ -11,9 +11,9 @@
 // occupancy mask, residual (plain, or the fused 1x1 downsample with its own
 // affine and mask), ReLU. Duplicate tiles (lists are padded by repeating the
 // last tile) recompute and store the same values; nothing accumulates into
-// the output. The grids are bfloat16, the model's compute dtype; float32
-// grids on the card are refused by the wrappers, the plain versions serve
-// them on the CPU.
+// the output. The grids are bfloat16 (the tensor-core kernels below) or
+// float32 (the FFMA kernels at the end of the file: rows 1-3, 6 and 7; the
+// fused block takes bfloat16 only), the model's compute dtype.
 //
 // tiled_conv3d, its prefolded stem, tiled_down2, tiled_up2, tiled_up2_into
 // and tiled_block3d: occupied-row GEMMs (conv_rows_kernel, up_rows_kernel).
@@ -768,13 +768,31 @@ __global__ void __launch_bounds__(256) split_reduce_kernel(const __grid_constant
   }
 }
 
+// element conversions of the grid dtypes (bfloat16 rows 1-9; float32 rows
+// 1-3, 6 and 7), and the elements of a 16-byte vector
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <typename T>
+constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+
 // listed rows whose occupancy is 0 under a plain residual: out = relu?(res)
+template <typename T>
 __global__ void __launch_bounds__(256) dead_rows_kernel(Tiles tl, Grid g, const int* rows,
                                                         const int* count, int n_list,
-                                                        const __nv_bfloat16* res, int cout,
-                                                        int relu, int vec,
-                                                        __nv_bfloat16* out) {
-  const int nv = vec ? cout / 8 : cout;
+                                                        const T* res, int cout, int relu,
+                                                        int vec, T* out) {
+  constexpr int V = VEC<T>;
+  const int nv = vec ? cout / V : cout;
   const long long n = (long long)count[1] * nv;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n;
        e += (long long)gridDim.x * blockDim.x) {
@@ -783,17 +801,16 @@ __global__ void __launch_bounds__(256) dead_rows_kernel(Tiles tl, Grid g, const 
     row_cell(tl, rows[n_list - 1 - j], ix, iy, iz);
     const long long cl = flat(g, ix + MX, iy + MY, iz + MZ) * cout;
     if (vec) {
-      uint4 r = *reinterpret_cast<const uint4*>(res + cl + v * 8);
-      __nv_bfloat16* rb16 = reinterpret_cast<__nv_bfloat16*>(&r);
+      uint4 r = *reinterpret_cast<const uint4*>(res + cl + v * V);
+      T* rv = reinterpret_cast<T*>(&r);
       if (relu) {
 #pragma unroll
-        for (int t = 0; t < 8; ++t)
-          rb16[t] = __float2bfloat16(fmaxf(__bfloat162float(rb16[t]), 0.f));
+        for (int t = 0; t < V; ++t) rv[t] = from_f<T>(fmaxf(to_f(rv[t]), 0.f));
       }
-      *reinterpret_cast<uint4*>(out + cl + v * 8) = r;
+      *reinterpret_cast<uint4*>(out + cl + v * V) = r;
     } else {
-      const float u = __bfloat162float(res[cl + v]);
-      out[cl + v] = __float2bfloat16(relu ? fmaxf(u, 0.f) : u);
+      const float u = to_f(res[cl + v]);
+      out[cl + v] = from_f<T>(relu ? fmaxf(u, 0.f) : u);
     }
   }
 }
@@ -975,13 +992,13 @@ __global__ void __launch_bounds__(GT, 1) up_rows_kernel(const __grid_constant__ 
 }
 
 // the U-Net skip into channels [cout, cout + skip_c) of every listed fine
-// cell, 8 channels a thread where the widths allow
-__global__ void __launch_bounds__(256) skip_copy_kernel(Tiles tl, Grid g,
-                                                        const __nv_bfloat16* skip,
+// cell, 16 bytes a thread where the widths allow
+template <typename T>
+__global__ void __launch_bounds__(256) skip_copy_kernel(Tiles tl, Grid g, const T* skip,
                                                         int skip_ctot, int skip_c, int cout,
-                                                        int ctot, int vec,
-                                                        __nv_bfloat16* out) {
-  const int nv = vec ? skip_c / 8 : skip_c;
+                                                        int ctot, int vec, T* out) {
+  constexpr int V = VEC<T>;
+  const int nv = vec ? skip_c / V : skip_c;
   const long long n = (long long)tl.n_rows * nv;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n;
        e += (long long)gridDim.x * blockDim.x) {
@@ -990,8 +1007,8 @@ __global__ void __launch_bounds__(256) skip_copy_kernel(Tiles tl, Grid g,
     row_cell(tl, r, ix, iy, iz);
     const long long cl = flat(g, ix + MX, iy + MY, iz + MZ);
     if (vec)
-      *reinterpret_cast<uint4*>(out + cl * ctot + cout + v * 8) =
-          *reinterpret_cast<const uint4*>(skip + cl * skip_ctot + v * 8);
+      *reinterpret_cast<uint4*>(out + cl * ctot + cout + v * V) =
+          *reinterpret_cast<const uint4*>(skip + cl * skip_ctot + v * V);
     else
       out[cl * ctot + cout + v] = skip[cl * skip_ctot + v];
   }
@@ -1000,27 +1017,28 @@ __global__ void __launch_bounds__(256) skip_copy_kernel(Tiles tl, Grid g,
 // tiled_up2_into's dead parents (no occupied child; listed from the row
 // buffer's end by compact_kernel, count[1] of them): exact zeros in
 // channels [c_off, c_off + cout) of their 8 children. One warp a dead
-// parent, its lanes over the children's channel runs (cout / 8 16-byte
-// stores a child where the widths allow), so a warp's stores land on a few
-// contiguous runs and the parent's coordinates are worked out once.
+// parent, its lanes over the children's channel runs (16-byte stores where
+// the widths allow), so a warp's stores land on a few contiguous runs and
+// the parent's coordinates are worked out once.
+template <typename T>
 __global__ void __launch_bounds__(256) up_dead_kernel(Tiles tl, Grid g, const int* rows,
                                                       const int* count, int n_par, int cout,
-                                                      int ctot, int c_off, int vec,
-                                                      __nv_bfloat16* out) {
+                                                      int ctot, int c_off, int vec, T* out) {
+  constexpr int V = VEC<T>;
   const int lane = threadIdx.x & 31, wpb = blockDim.x >> 5;
-  const int per = vec ? cout / 8 : cout;  // stores a child
+  const int per = vec ? cout / V : cout;  // stores a child
   for (int j = blockIdx.x * wpb + (threadIdx.x >> 5); j < count[1]; j += gridDim.x * wpb) {
     int px, py, pz;
     parent_cell(tl, rows[n_par - 1 - j], px, py, pz);
     for (int e = lane; e < 8 * per; e += 32) {
       const int d = e / per, v = e - d * per;
-      __nv_bfloat16* o = out + c_off +
-                         flat(g, 2 * px + (d & 1) + MX, 2 * py + ((d >> 1) & 1) + MY,
-                              2 * pz + (d >> 2) + MZ) * ctot;
+      T* o = out + c_off +
+             flat(g, 2 * px + (d & 1) + MX, 2 * py + ((d >> 1) & 1) + MY,
+                  2 * pz + (d >> 2) + MZ) * ctot;
       if (vec)
         reinterpret_cast<uint4*>(o)[v] = make_uint4(0, 0, 0, 0);
       else
-        o[v] = __float2bfloat16(0.f);
+        o[v] = from_f<T>(0.f);
     }
   }
 }
@@ -1100,6 +1118,299 @@ cudaError_t launch_up(UpRows p, int n_par, int* rows, int want_dead, cudaStream_
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 grids (tiled_conv3d, its prefolded stem, tiled_down2, tiled_up2
+// and tiled_up2_into at conv_dtype=float32): the same occupied-row GEMMs
+// over the same compacted live rows (compact_kernel), with exact float32
+// products and float32 sums on the FFMA units. The reference is the JAX
+// kernel at float32; TF32 (the tensor cores' float32 input) would round
+// each product's operands to 10 mantissa bits, a different result. A
+// block of 256 threads owns 64 live rows and 64 output columns, each
+// thread 4 rows (16 apart) by 4 columns (16 apart) in registers; a K step
+// is 16 channels of one tap: the rows' 64 x 16 operand (gathered through
+// the rows' cells, 16-byte loads where cin allows) and the weights' 16 x
+// 64 slice are staged in shared memory, k-major, and the next step's
+// global loads are issued into registers before this step's FMAs. The
+// epilogue is row 1's, in its order (affine, mask, residual or the fused
+// 1x1's masked affine result, ReLU); the rows are never split over K, so
+// each output is one thread's sum in tap, then channel order, and a
+// repeat is bitwise equal.
+
+constexpr int FM = 64, FN = 64, FK = 16, FT = 256;
+
+struct ConvF32 {
+  const float* x;
+  int cin, cpad, k, xonly, down;
+  Grid gin, g;
+  const float* wt;  // (cout, taps, cpad)
+  int cout;
+  Tiles tl;
+  const int* rows;
+  const int* count;
+  const float* scale;
+  const float* bias;
+  const float* occ;
+  const float* res;  // plain residual (cout channels) or the 1x1's input
+  int cres, crpad;
+  const float* rwt;  // (cout, crpad): the fused 1x1, or null
+  const float* rscale;
+  const float* rbias;
+  int relu, vec_a, vec_r;
+  float* out;
+};
+
+// one K phase of FFMA: acc (4 x 4 a thread) += the rows' gathered operand
+// (taps x cpad channels of src at cells + tap offset) x wt (cout, taps,
+// cpad); taps at offsets from the row's cell as TapLoader walks them
+struct F32Phase {
+  const float* src;
+  int cin, cpad, k, xonly, down, vec;
+  Grid g;
+  const float* wt;
+  int cout, n0;
+  const int* cell;  // shared: the rows' tap-base cells, -1 past the live rows
+
+  __device__ __forceinline__ int taps() const { return xonly ? k : k * k * k; }
+
+  // this thread's 4 operand values (row m = tid / 4, channels 4 (tid % 4) ..)
+  // and 4 weight values (column n = tid / 4, the same channels) of step s
+  __device__ __forceinline__ void load(int s, float (&a)[4], float (&b)[4]) const {
+    const int nkc = cpad / FK, h = down ? 0 : k / 2;
+    const int tap = s / nkc, c0 = (s - tap * nkc) * FK + (threadIdx.x & 3) * 4;
+    const int dx = xonly ? tap : tap % k;
+    const int dy = xonly ? h : (tap / k) % k, dz = xonly ? h : tap / (k * k);
+    const int off = ((dx - h) * g.ym + (dy - h)) * g.zm + (dz - h);
+    const int m = threadIdx.x >> 2, cl = cell[m];
+    if (vec) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (cl >= 0 && c0 < cin) v = *reinterpret_cast<const float4*>(src + (long long)(cl + off) * cin + c0);
+      a[0] = v.x;
+      a[1] = v.y;
+      a[2] = v.z;
+      a[3] = v.w;
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        a[t] = cl >= 0 && c0 + t < cin ? src[(long long)(cl + off) * cin + c0 + t] : 0.f;
+    }
+    const int gn = n0 + m;  // weights rows are cpad-aligned: one float4
+    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gn < cout) w = *reinterpret_cast<const float4*>(wt + ((long long)gn * taps() + tap) * cpad + c0);
+    b[0] = w.x;
+    b[1] = w.y;
+    b[2] = w.z;
+    b[3] = w.w;
+  }
+};
+
+// acc = the rows' products over ph's K steps, through shared memory, with
+// the next step's loads in flight over this step's FMAs
+__device__ __forceinline__ void f32_gemm(const F32Phase& ph, int steps, float (*as)[FM + 4],
+                                         float (*bs)[FN + 4], float (&acc)[4][4]) {
+  const int tid = threadIdx.x, tm = tid >> 4, tn = tid & 15;
+  const int lm = tid >> 2, lk = (tid & 3) * 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float a[4], b[4];
+  if (steps > 0) ph.load(0, a, b);
+  for (int s = 0; s < steps; ++s) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      as[lk + t][lm] = a[t];
+      bs[lk + t][lm] = b[t];
+    }
+    __syncthreads();
+    if (s + 1 < steps) ph.load(s + 1, a, b);
+#pragma unroll
+    for (int kk = 0; kk < FK; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = as[kk][tm + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tn + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(FT) conv_rows_f32_kernel(const __grid_constant__ ConvF32 p) {
+  __shared__ float as[FK][FM + 4];
+  __shared__ float bs[FK][FN + 4];
+  __shared__ int cell[FM], ocell[FM];
+  __shared__ float orow[FM];
+  const int tid = threadIdx.x, tm = tid >> 4, tn = tid & 15;
+  const int n0 = blockIdx.y * FN;
+  const int n_live = p.count[0];
+  const F32Phase main_ph{p.x, p.cin, p.cpad, p.k, p.xonly, p.down, p.vec_a, p.gin,
+                         p.wt, p.cout, n0, cell};
+  const F32Phase res_ph{p.res, p.cres, p.crpad, 1, 0, 0, p.vec_r, p.g, p.rwt, p.cout, n0,
+                        ocell};
+  float acc[4][4], racc[4][4];
+  for (int rb = blockIdx.x; rb * FM < n_live; rb += gridDim.x) {
+    if (tid < FM) {
+      const int i = rb * FM + tid;
+      int c = -1, oc = -1;
+      float o = 1.f;
+      if (i < n_live) {
+        int ix, iy, iz;
+        row_cell(p.tl, p.rows[i], ix, iy, iz);
+        oc = static_cast<int>(flat(p.g, ix + MX, iy + MY, iz + MZ));
+        c = p.down ? static_cast<int>(flat(p.gin, 2 * ix + MX, 2 * iy + MY, 2 * iz + MZ)) : oc;
+        if (p.occ != nullptr) o = p.occ[oc];
+      }
+      cell[tid] = c;
+      ocell[tid] = oc;
+      orow[tid] = o;
+    }
+    __syncthreads();
+    if (p.rwt != nullptr) {  // the fused 1x1: occ * (res @ rw * rscale + rbias)
+      f32_gemm(res_ph, p.crpad / FK, as, bs, acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int gn = n0 + tn + 16 * j;
+          float v = acc[i][j];
+          if (gn < p.cout) v = v * p.rscale[gn] + p.rbias[gn];
+          if (p.occ != nullptr) v = v * orow[tm + 16 * i];
+          racc[i][j] = v;
+        }
+    }
+    f32_gemm(main_ph, main_ph.taps() * (p.cpad / FK), as, bs, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = tm + 16 * i, cl = ocell[m];
+      if (cl < 0) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int gn = n0 + tn + 16 * j;
+        if (gn >= p.cout) continue;
+        const long long o = (long long)cl * p.cout + gn;
+        float v = acc[i][j];
+        if (p.scale != nullptr) v = v * p.scale[gn] + p.bias[gn];
+        if (p.occ != nullptr) v = v * orow[m];
+        if (p.rwt != nullptr) v += racc[i][j];
+        else if (p.res != nullptr) v += p.res[o];
+        p.out[o] = p.relu ? fmaxf(v, 0.f) : v;
+      }
+    }
+    __syncthreads();  // cell, ocell and orow are rewritten by the next row block
+  }
+}
+
+// the up at float32: rows the live coarse parents, columns the 8 parities'
+// outputs (column j: parity j / cout, channel j % cout; wt (8, cout, cpad)
+// is then (8 cout, cpad)), K the parent's cin channels; the epilogue writes
+// child 2p + d at channel c_off + j % cout as up_rows_kernel does
+struct UpF32 {
+  const float* x;
+  int cin, cpad;
+  Grid gin;
+  const float* wt;
+  int cout;
+  Tiles tl;
+  Grid gout;
+  const int* rows;
+  const int* count;
+  const float* scale;
+  const float* bias;
+  const float* occ;
+  int ctot, c_off, into, relu, vec_a;
+  float* out;
+};
+
+__global__ void __launch_bounds__(FT) up_rows_f32_kernel(const __grid_constant__ UpF32 p) {
+  __shared__ float as[FK][FM + 4];
+  __shared__ float bs[FK][FN + 4];
+  __shared__ int cell[FM];
+  __shared__ int pc[FM][3];
+  const int tid = threadIdx.x, tm = tid >> 4, tn = tid & 15;
+  const int n0 = blockIdx.y * FN, ncol = 8 * p.cout;
+  const int n_live = p.count[0];
+  // k = 1 over the parents' own cells: one tap of the conv loader
+  const F32Phase ph{p.x, p.cin, p.cpad, 1, 0, 0, p.vec_a, p.gin, p.wt, ncol, n0, cell};
+  float acc[4][4];
+  for (int rb = blockIdx.x; rb * FM < n_live; rb += gridDim.x) {
+    if (tid < FM) {
+      const int i = rb * FM + tid;
+      int c = -1;
+      if (i < n_live) {
+        int px, py, pz;
+        parent_cell(p.tl, p.rows[i], px, py, pz);
+        pc[tid][0] = px;
+        pc[tid][1] = py;
+        pc[tid][2] = pz;
+        c = static_cast<int>(flat(p.gin, px + MX, py + MY, pz + MZ));
+      }
+      cell[tid] = c;
+    }
+    __syncthreads();
+    f32_gemm(ph, p.cpad / FK, as, bs, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = tm + 16 * i;
+      if (cell[m] < 0) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + tn + 16 * j;
+        if (col >= ncol) continue;
+        const int d = col / p.cout, n = col - d * p.cout;
+        const long long ch = flat(p.gout, 2 * pc[m][0] + (d & 1) + MX,
+                                  2 * pc[m][1] + ((d >> 1) & 1) + MY,
+                                  2 * pc[m][2] + (d >> 2) + MZ);
+        const float o = p.occ != nullptr ? p.occ[ch] : 1.f;
+        // an unoccupied child: tiled_up2 leaves the wrapper's zeros, the
+        // into-conv writes them
+        if (p.occ != nullptr && o == 0.f && !p.into) continue;
+        float v = acc[i][j];
+        if (p.scale != nullptr) v = v * p.scale[n] + p.bias[n];
+        if (p.occ != nullptr) v = v * o;
+        if (p.relu) v = fmaxf(v, 0.f);
+        p.out[ch * p.ctot + p.c_off + n] = p.occ != nullptr && o == 0.f ? 0.f : v;
+      }
+    }
+    __syncthreads();  // cell and pc are rewritten by the next row block
+  }
+}
+
+// the float32 conv after compaction: conv_rows_f32_kernel over the listed
+// rows' live part, then (identity residual) dead_rows_kernel
+int launch_conv_f32(ConvF32 p, int n_rows, int* rows, int want_dead, cudaStream_t s) {
+  int* count = rows + n_rows;
+  cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
+  compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(p.tl, p.g, p.occ, 0, n_rows, rows, count,
+                                                      want_dead, nullptr);
+  p.rows = rows;
+  p.count = count;
+  const dim3 grid(blocks_for(n_rows, FM), (p.cout + FN - 1) / FN);
+  conv_rows_f32_kernel<<<grid, FT, 0, s>>>(p);
+  if (want_dead) {
+    const int vec = p.cout % 4 == 0 && aligned16(p.res) && aligned16(p.out);
+    dead_rows_kernel<float><<<blocks_for((long long)n_rows * (vec ? p.cout / 4 : p.cout), 256),
+                              256, 0, s>>>(p.tl, p.g, rows, count, n_rows, p.res, p.cout,
+                                           p.relu, vec, p.out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_up_f32(UpF32 p, int n_par, int* rows, int want_dead, cudaStream_t s) {
+  int* count = rows + n_par;
+  cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
+  compact_kernel<<<(n_par + 255) / 256, 256, 0, s>>>(p.tl, p.gout, p.occ, 1, n_par, rows,
+                                                     count, want_dead, nullptr);
+  p.rows = rows;
+  p.count = count;
+  const dim3 grid(blocks_for(n_par, FM), (8 * p.cout + FN - 1) / FN);
+  up_rows_f32_kernel<<<grid, FT, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // bfloat16 grids, weights, residual and skip; affines and occupancy are
@@ -1140,7 +1451,7 @@ extern "C" int tiled_conv3d_launch(
   if (e != cudaSuccess) return static_cast<int>(e);
   if (want_dead) {
     const int vec = cout % 8 == 0 && aligned16(res) && aligned16(out);
-    dead_rows_kernel<<<blocks_for((long long)n_rows * (vec ? cout / 8 : cout), 256), 256, 0,
+    dead_rows_kernel<__nv_bfloat16><<<blocks_for((long long)n_rows * (vec ? cout / 8 : cout), 256), 256, 0,
                        s>>>(tl, g, rows, count, n_rows, rb, cout, relu, vec, ob);
   }
   return static_cast<int>(cudaGetLastError());
@@ -1224,7 +1535,7 @@ extern "C" int tiled_up2_launch(
   if (skip != nullptr) {
     const int vec = skip_c % 8 == 0 && skip_ctot % 8 == 0 && ctot % 8 == 0 &&
                     cout % 8 == 0 && aligned16(skip) && aligned16(out);
-    skip_copy_kernel<<<blocks_for((long long)n_rows * (vec ? skip_c / 8 : skip_c), 256), 256,
+    skip_copy_kernel<__nv_bfloat16><<<blocks_for((long long)n_rows * (vec ? skip_c / 8 : skip_c), 256), 256,
                        0, s>>>(tl, go, static_cast<const __nv_bfloat16*>(skip), skip_ctot,
                                skip_c, cout, ctot, vec, ob);
   }
@@ -1256,7 +1567,7 @@ extern "C" int tiled_up2_into_launch(
   const cudaError_t e = launch_up(p, n_par, rows, want_dead, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (want_dead)
-    up_dead_kernel<<<blocks_for((long long)n_par * 32, 256), 256, 0, s>>>(
+    up_dead_kernel<__nv_bfloat16><<<blocks_for((long long)n_par * 32, 256), 256, 0, s>>>(
         tl, go, rows, rows + n_par, n_par, cout, ctot, skip_c, vec, ob);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1311,8 +1622,109 @@ extern "C" int tiled_block3d_launch(
   if (e != cudaSuccess) return static_cast<int>(e);
   if (want_dead) {
     const int vec = cout % 8 == 0 && aligned16(x) && aligned16(out);
-    dead_rows_kernel<<<blocks_for((long long)n_rows * (vec ? cout / 8 : cout), 256), 256, 0,
+    dead_rows_kernel<__nv_bfloat16><<<blocks_for((long long)n_rows * (vec ? cout / 8 : cout), 256), 256, 0,
                        s>>>(tl, g, rows, count, n_rows, xb, cout, 1, vec, ob);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// float32 grids, weights, residual and skip, with the arguments of the
+// bfloat16 launchers above (no split-K scratch: the float32 rows are never
+// split). rows: int32 scratch of n_rows + 2 (the up's: n_rows / 8 + 2).
+
+extern "C" int tiled_conv3d_f32_launch(
+    const void* x, int cin, int xm, int ym, int zm, const void* wt, int cpad, int k,
+    int cout, const int* tiles, int n_rows, int tx, int ty, int tz, const float* scale,
+    const float* bias, const float* occ, const void* res, int cres, const void* rwt,
+    int crpad, const float* rscale, const float* rbias, int relu, int* rows, void* out,
+    void* stream) {
+  if (n_rows <= 0) return 0;
+  const Grid g{xm, ym, zm};
+  const auto* xf = static_cast<const float*>(x);
+  const auto* rf = static_cast<const float*>(res);
+  const ConvF32 p{xf, cin, cpad, k, 0, 0, g, g, static_cast<const float*>(wt), cout,
+                  Tiles{tiles, n_rows, tx, ty, tz}, nullptr, nullptr, scale, bias, occ, rf,
+                  cres, crpad, static_cast<const float*>(rwt), rscale, rbias, relu,
+                  cin % 4 == 0 && aligned16(x), rwt != nullptr && cres % 4 == 0 && aligned16(res),
+                  static_cast<float*>(out)};
+  return launch_conv_f32(p, n_rows, rows, occ != nullptr && res != nullptr && rwt == nullptr,
+                         static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tiled_conv3d_prefolded_f32_launch(
+    const void* x, int cf, int xm, int ym, int zm, const void* wt, int cpad, int k,
+    int cout, const int* tiles, int n_rows, int tx, int ty, int tz, const float* scale,
+    const float* bias, const float* occ, int relu, int* rows, void* out, void* stream) {
+  if (n_rows <= 0) return 0;
+  const Grid g{xm, ym, zm};
+  const ConvF32 p{static_cast<const float*>(x), cf, cpad, k, 1, 0, g, g,
+                  static_cast<const float*>(wt), cout, Tiles{tiles, n_rows, tx, ty, tz},
+                  nullptr, nullptr, scale, bias, occ, nullptr, 0, 0, nullptr, nullptr, nullptr,
+                  relu, cf % 4 == 0 && aligned16(x), 0, static_cast<float*>(out)};
+  return launch_conv_f32(p, n_rows, rows, 0, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tiled_down2_f32_launch(
+    const void* x, int cin, int xm, int ym, int zm, const void* wt, int cpad, int cout,
+    const int* tiles, int n_rows, int tx, int ty, int tz, int cxm, int cym, int czm,
+    const float* scale, const float* bias, const float* occ, int relu, int* rows, void* out,
+    void* stream) {
+  if (n_rows <= 0) return 0;
+  const ConvF32 p{static_cast<const float*>(x), cin, cpad, 2, 0, 1, Grid{xm, ym, zm},
+                  Grid{cxm, cym, czm}, static_cast<const float*>(wt), cout,
+                  Tiles{tiles, n_rows, tx, ty, tz}, nullptr, nullptr, scale, bias, occ, nullptr,
+                  0, 0, nullptr, nullptr, nullptr, relu, cin % 4 == 0 && aligned16(x), 0,
+                  static_cast<float*>(out)};
+  return launch_conv_f32(p, n_rows, rows, 0, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tiled_up2_f32_launch(
+    const void* x, int cin, int cxm, int cym, int czm, const void* wt, int cpad, int cout,
+    const int* tiles, int n_rows, int tx, int ty, int tz, int xm, int ym, int zm,
+    const float* scale, const float* bias, const float* occ, const void* skip,
+    int skip_ctot, int skip_c, int relu, int* rows, void* out, void* stream) {
+  if (n_rows <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Tiles tl{tiles, n_rows, tx, ty, tz};
+  const Grid go{xm, ym, zm};
+  const int ctot = cout + skip_c;
+  auto* of = static_cast<float*>(out);
+  const UpF32 p{static_cast<const float*>(x), cin, cpad, Grid{cxm, cym, czm},
+                static_cast<const float*>(wt), cout, tl, go, nullptr, nullptr, scale, bias,
+                occ, ctot, 0, 0, relu, cin % 4 == 0 && aligned16(x), of};
+  const int e = launch_up_f32(p, n_rows / 8, rows, 0, s);
+  if (e != 0) return e;
+  if (skip != nullptr) {
+    const int vec = skip_c % 4 == 0 && skip_ctot % 4 == 0 && ctot % 4 == 0 &&
+                    cout % 4 == 0 && aligned16(skip) && aligned16(out);
+    skip_copy_kernel<float><<<blocks_for((long long)n_rows * (vec ? skip_c / 4 : skip_c), 256),
+                              256, 0, s>>>(tl, go, static_cast<const float*>(skip), skip_ctot,
+                                           skip_c, cout, ctot, vec, of);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tiled_up2_into_f32_launch(
+    const void* x, int cin, int cxm, int cym, int czm, const void* wt, int cpad, int cout,
+    const int* tiles, int n_rows, int tx, int ty, int tz, int xm, int ym, int zm,
+    const float* scale, const float* bias, const float* occ, int skip_c, int ctot, int relu,
+    int* rows, void* dest, void* stream) {
+  if (n_rows <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Tiles tl{tiles, n_rows, tx, ty, tz};
+  const Grid go{xm, ym, zm};
+  const int n_par = n_rows / 8;
+  auto* of = static_cast<float*>(dest);
+  const UpF32 p{static_cast<const float*>(x), cin, cpad, Grid{cxm, cym, czm},
+                static_cast<const float*>(wt), cout, tl, go, nullptr, nullptr, scale, bias,
+                occ, ctot, skip_c, 1, relu, cin % 4 == 0 && aligned16(x), of};
+  const int want_dead = occ != nullptr;
+  const int e = launch_up_f32(p, n_par, rows, want_dead, s);
+  if (e != 0) return e;
+  if (want_dead) {
+    const int vec = cout % 4 == 0 && ctot % 4 == 0 && skip_c % 4 == 0 && aligned16(dest);
+    up_dead_kernel<float><<<blocks_for((long long)n_par * 32, 256), 256, 0, s>>>(
+        tl, go, rows, rows + n_par, n_par, cout, ctot, skip_c, vec, of);
   }
   return static_cast<int>(cudaGetLastError());
 }

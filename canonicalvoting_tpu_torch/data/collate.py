@@ -14,8 +14,13 @@ a microbatch and then padded to those capacities, which gives the arrays a
 pyramid built at them gives (padding rows are far-away coordinates that
 depend on their position only, and table rows of -1).
 
-The dense-backbone, flat-level and sharded collates of the JAX package are
-not ported.
+The dense training route's batches (:func:`collate_joint_dense`,
+``collate_separate(dense=True)``) carry each row's flat MARGINED cell id
+into a stacked (B, X, Y, Z) grid (``data/dense_prep.py:
+dense_flat_ids_batched``) and a valid mask instead of the pyramid, with
+the gather form's rows and labels in the same order, so the same losses
+apply; their microbatches pin the grid dims and the row cap. The
+flat-level and sharded collates of the JAX package are not ported.
 """
 
 from __future__ import annotations
@@ -24,7 +29,10 @@ from dataclasses import replace
 from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
 
+from canonicalvoting_tpu_torch.data.dense_prep import (
+    dense_flat_ids_batched, dense_grid_geometry)
 from canonicalvoting_tpu_torch.data.geometry import NCLASSES
 from canonicalvoting_tpu_torch.ops.coords import (
     PyramidArrays, PyramidSpec, _pad_coords, build_pyramid, pad_rows)
@@ -109,21 +117,91 @@ def collate_joint(items: Sequence, cap_multiple: int = 4096,
     }
 
 
+def _dense_groups(items: Sequence, microbatch: int, cap_multiple: int):
+    """(groups, dims, cap) of a dense batch's microbatches: the scene
+    groups, the grid dims pinned to the batch's largest and the row cap to
+    the largest group's."""
+    if len(items) % microbatch:
+        raise ValueError("batch size must divide by the microbatch size "
+                         f"({len(items)} % {microbatch})")
+    dims = tuple(int(max(dense_grid_geometry(it[1])[1][a] for it in items))
+                 for a in range(3))
+    groups = [list(items[i:i + microbatch])
+              for i in range(0, len(items), microbatch)]
+    cap = max(int(np.ceil(sum(len(it[1]) for it in g) / cap_multiple)
+                  * cap_multiple) for g in groups)
+    return groups, dims, cap
+
+
+def _dense_rows(items: Sequence, cap_multiple: int, dims, cap):
+    """(fields, row cap) of a dense batch: meta (ids, grid dims, scenes),
+    flat ids (-1 padding), valid mask and the row count."""
+    flat, dims, _ = dense_flat_ids_batched([it[1] for it in items], dims=dims)
+    n = len(flat)
+    cap0 = cap if cap is not None else int(np.ceil(n / cap_multiple)
+                                           * cap_multiple)
+    valid = np.zeros((cap0,), np.float32)
+    valid[:n] = (flat >= 0).astype(np.float32)
+    return {"meta": {"ids": [it[0] for it in items], "grid_dims": dims,
+                     "n_scenes": len(items)},
+            "flat_idx": _pad(flat, cap0, -1), "valid": valid,
+            "nvalid": np.int32(n)}, cap0
+
+
+def collate_joint_dense(items: Sequence, cap_multiple: int = 4096,
+                        microbatch: int = 0, grid_dims=None,
+                        cap: int = None) -> Dict:
+    """A joint batch for the dense training route (JAX
+    ``collate_joint_dense``): ``flat_idx`` into the stacked grid,
+    ``valid``, ``nvalid``, and ``collate_joint``'s features and labels in
+    its row order; ``meta.grid_dims`` and ``meta.n_scenes`` are the step's
+    grid arguments. ``microbatch=k``: ``{"microbatches": [batch, ...],
+    "meta"}`` with the grid dims and row cap pinned."""
+    if microbatch:
+        groups, dims, cap_nat = _dense_groups(items, microbatch, cap_multiple)
+        return {"microbatches": [
+                    collate_joint_dense(g, cap_multiple, grid_dims=dims,
+                                        cap=cap_nat) for g in groups],
+                "meta": {"ids": [it[0] for it in items], "grid_dims": dims,
+                         "n_scenes": microbatch}}
+    batch, cap0 = _dense_rows(items, cap_multiple, grid_dims, cap)
+    return {**batch, "feats": _feats(items, cap0),
+            "xyz_labels": _cat(items, 3, np.float32, cap0, 0.0),
+            "scale_labels": _cat(items, 4, np.float32, cap0, 1.0),
+            "class_labels": _cat(items, 5, np.int32, cap0, NCLASSES)}
+
+
 def collate_separate(items: Sequence, cap_multiple: int = 4096,
                      max_objects: int = 64, microbatch: int = 0,
-                     pyr: PyramidArrays = None) -> Dict:
+                     pyr: PyramidArrays = None, dense: bool = False,
+                     grid_dims=None, cap: int = None) -> Dict:
     """items: (id_scan, coords, feats, base_xyz, scale_labels, obj_labels,
     class_labels, obj_id, sym_codes). Object ids are offset per scene into
     one id space for the batch (the segment sums of the symmetry loss);
-    objects past ``max_objects`` leave the xyz loss."""
+    objects past ``max_objects`` leave the xyz loss. ``dense=True`` gives
+    the dense training route's rows (flat ids, valid mask) in place of the
+    pyramid, as :func:`collate_joint_dense` does, with the same labels."""
+    if microbatch and dense:
+        groups, dims, cap_nat = _dense_groups(items, microbatch, cap_multiple)
+        return {"microbatches": [
+                    collate_separate(g, cap_multiple, max_objects, dense=True,
+                                     grid_dims=dims, cap=cap_nat)
+                    for g in groups],
+                "meta": {"ids": [it[0] for it in items], "grid_dims": dims,
+                         "n_scenes": microbatch}}
     if microbatch:
         groups, pyrs = _microbatches(items, microbatch, cap_multiple)
         return {"microbatches": [
                     collate_separate(g, max_objects=max_objects, pyr=p)
                     for g, p in zip(groups, pyrs)],
                 "meta": {"ids": [it[0] for it in items]}}
-    pyr = pyr if pyr is not None else _pyramid(items, cap_multiple)
-    cap0 = pyr.coords[0].shape[0]
+    if dense:
+        rows, cap0 = _dense_rows(items, cap_multiple, grid_dims, cap)
+    else:
+        pyr = pyr if pyr is not None else _pyramid(items, cap_multiple)
+        cap0 = pyr.coords[0].shape[0]
+        rows = {"meta": {"ids": [it[0] for it in items],
+                         "coords": pyr.coords[0]}, "pyramid": pyr}
 
     obj_ids, offset = [], 0
     for it in items:
@@ -138,8 +216,7 @@ def collate_separate(items: Sequence, cap_multiple: int = 4096,
     obj_id = _pad(np.concatenate(obj_ids, 0), cap0, -1)
     obj_id[obj_id >= max_objects] = -1
     return {
-        "meta": {"ids": [it[0] for it in items], "coords": pyr.coords[0]},
-        "pyramid": pyr,
+        **rows,
         "feats": _feats(items, cap0),
         "base_xyz": _cat(items, 3, np.float32, cap0, 0.0),
         "scale_labels": _cat(items, 4, np.float32, cap0, 1.0),
@@ -154,11 +231,15 @@ def collate_separate(items: Sequence, cap_multiple: int = 4096,
 def upload_batch(batch: Dict, device) -> Dict:
     """A host batch (one microbatch, or a whole batch without them) on
     ``device``: the pyramid's tables (``PyramidArrays.to``), ``feats`` and
-    every label array in one copy; scalars and ``meta`` stay on the host."""
+    every label array in one copy (a dense batch: its arrays, one copy
+    each); scalars and ``meta`` stay on the host."""
     names = [k for k, v in batch.items()
              if isinstance(v, np.ndarray) and v.ndim > 0]
-    tables, arrays = batch["pyramid"].to(device, [batch[k] for k in names])
     out = {k: v for k, v in batch.items() if k not in names}
+    if "pyramid" not in batch:
+        out.update((k, torch.from_numpy(batch[k]).to(device)) for k in names)
+        return out
+    tables, arrays = batch["pyramid"].to(device, [batch[k] for k in names])
     out.update(zip(names, arrays))
     out["pyramid"] = tables
     return out

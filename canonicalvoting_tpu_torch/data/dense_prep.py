@@ -75,6 +75,26 @@ def _interior_coords(coords, base, dims):
     return c0[np.all((c0 >= 0) & (c0 < np.asarray(dims)), axis=1)]
 
 
+def dense_flat_ids_batched(coords_list, dims=None):
+    """Flat ids of a batch of scenes in one stacked (B, X, Y, Z) grid
+    (the dense training route, ``n_scenes=B``): each scene takes its own
+    base; the common INTERIOR dims are the elementwise max over the scenes
+    (``dims`` when given, pinned across the microbatches of a batch), and
+    scene s's ids are offset by s * n_cells of the margined grid; -1 stays
+    -1. Returns (flat (sum Ni,) int32, dims, bases [B x (3,)]), as the JAX
+    package's ``dense_flat_ids_batched``."""
+    geo = [dense_grid_geometry(c) for c in coords_list]
+    if dims is None:
+        dims = tuple(int(max(g[1][a] for g in geo)) for a in range(3))
+    else:
+        dims = tuple(int(d) for d in dims)
+    n_cells = (dims[0] + 2 * MX) * (dims[1] + 2 * MY) * (dims[2] + 2 * MZ)
+    flats = [np.where(f >= 0, f + s * n_cells, -1).astype(np.int32)
+             for s, f in enumerate(dense_flat_ids(c, base, dims)
+                                   for c, (base, _) in zip(coords_list, geo))]
+    return np.concatenate(flats), dims, [g[0] for g in geo]
+
+
 def level_tiles(coords: np.ndarray, base: np.ndarray,
                 dims: Tuple[int, int, int], tile_plan=None, stem_plan=None,
                 conv_plan=None, trans_plan=None):

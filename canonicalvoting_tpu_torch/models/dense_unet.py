@@ -24,6 +24,19 @@ parameters keep the reference layout. :func:`shared_scene_grids` builds
 the weight-independent grids of a scene once, so several models over one
 scene share them (``forward(..., shared=)``).
 
+:meth:`DenseMinkUNet.train_forward` is the training route, the JAX
+package's ``conv_impl="xla"`` branch (``models/dense_unet.py:196``,
+``:270-310``), which runs outside any Pallas kernel there: masked dense
+convolutions over the batched margined grids (``F.conv3d`` for the
+stride-1 and the stride-2 convs, ``F.conv_transpose3d`` for the ups;
+library calls, not ports of a TPU kernel), each output masked by its
+level's occupancy and normalized by the train-mode ``DenseBatchNorm``
+(:class:`MaskedGridNorm`: float32 sums over the occupied cells, re-masked
+output), for ``n_scenes`` scenes stacked on a leading axis. With ``remat``
+each residual block is recomputed in the backward (``models/norm.py:
+remat``). Its gradients flow into the same parameters as the inference
+route's, so a model trained here runs on the kernels as it is.
+
 Parameter and buffer names follow the JAX parameter tree (``conv0p1s1.kernel``,
 ``block1_0.conv1.kernel``, ``bn0.scale``, ``bn0.mean``, ``bntr4.var``,
 ``final.bias``, ...), so ``utils/weights.py`` copies a JAX variables tree in
@@ -41,6 +54,7 @@ from torch import nn
 
 from canonicalvoting_tpu_torch.data.dense_prep import (
     CONV_KEY_OFF, MX, MY, MZ, STEM_KEY, TRANS_KEYS)
+from canonicalvoting_tpu_torch.models.norm import remat, running_updates
 from canonicalvoting_tpu_torch.ops.tiled_conv import (
     UP_INTO_MAX_CHANNELS, down2_weights, fold_dydz, prefold_stem_weights,
     tiled_conv3d, tiled_conv3d_prefolded, tiled_down2, tiled_up2,
@@ -89,6 +103,60 @@ class BatchNorm(nn.Module):
         a = torch.rsqrt(self.var + self.eps) * self.scale
         return a, self.bias - self.mean * a
 
+    def grid(self, y: torch.Tensor, occ: torch.Tensor,
+             momentum: float) -> torch.Tensor:
+        """The JAX package's train-mode ``DenseBatchNorm`` over a
+        channel-last grid ``y`` (conv output, in the compute dtype) after
+        the conv's mask: ``occ * ((y * occ - mean) * inv * scale + bias)``
+        with the batch statistics over the occupied cells
+        (:class:`MaskedGridNorm`)."""
+        return MaskedGridNorm.apply(y, occ, self.scale, self.bias, self,
+                                    momentum)
+
+
+class MaskedGridNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the occupied cells of a dense grid (JAX
+    ``models/dense_unet.py:75-131``), fused with the conv's mask that
+    precedes it: x = y * occ in y's dtype; n = max(sum occ, 1); mean and
+    the biased variance from float32 sums over the occupied cells; out =
+    occ * ((x - mean) * rsqrt(var + eps) * scale + bias) in y's dtype; the
+    running statistics take the mean and the unbiased variance with the
+    step's momentum (not inside :func:`frozen_running_stats`). It saves y
+    alone of the grids, and its backward is BatchNorm's over the occupied
+    cells, zero elsewhere: the autograd of the formula would keep several
+    float32 grids a norm."""
+
+    @staticmethod
+    def forward(ctx, y, occ, scale, bias, norm, momentum):
+        o = occ[..., None]
+        xf = (y * o.to(y.dtype)).float()  # a fresh grid: updated in place
+        axes = tuple(range(y.dim() - 1))
+        n = torch.clamp_min(occ.sum(), 1.0)
+        mean = xf.sum(axes) / n
+        var = torch.clamp_min((xf * xf).sum(axes) / n - mean * mean, 0.0)
+        if running_updates():
+            unbiased = var * n / torch.clamp_min(n - 1.0, 1.0)
+            norm.mean.mul_(1.0 - momentum).add_(momentum * mean)
+            norm.var.mul_(1.0 - momentum).add_(momentum * unbiased)
+        inv = torch.rsqrt(var + norm.eps)
+        # o is 0 or 1: (t + bias) * o equals JAX's t * o + bias * o
+        out = xf.sub_(mean).mul_(inv).mul_(scale).add_(bias).mul_(o)
+        ctx.save_for_backward(y, occ, mean, inv, scale, n)
+        return out.to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        y, occ, mean, inv, scale, n = ctx.saved_tensors
+        o = occ[..., None]
+        axes = tuple(range(y.dim() - 1))
+        g = grad.float() * o  # not in place: grad may be float32 already
+        xhat = (y * o.to(y.dtype)).float().sub_(mean).mul_(inv)
+        d_bias = g.sum(axes)
+        d_scale = (g * xhat).sum(axes)
+        dx = xhat.mul_(-d_scale / n).add_(g).sub_(d_bias / n)
+        dx = dx.mul_(inv * scale).mul_(o)
+        return dx.to(y.dtype), None, d_scale, d_bias, None, None
+
 
 class BasicBlock(nn.Module):
     """Two fused k=3 convs: ``relu(occ * bn1(conv1 x))``, then
@@ -128,6 +196,51 @@ class BasicBlock(nn.Module):
                             kernel_size=3, scale=a2, bias=b2, occ=occ,
                             residual=x, res_w=rw, res_scale=rs, res_bias=rb,
                             relu_out=True)
+
+    def dense(self, x, occ, momentum: float, dt):
+        """The JAX ``DenseBasicBlock``'s XLA route in train mode over
+        batched grids: ``relu(bn2(conv2 relu(bn1(conv1 x))) + res)``, each
+        conv masked by occ before its norm; res = x or ``bn(x @ W)``."""
+        out = self.norm1.grid(dense_conv(x, self.conv1.kernel, 3, dt), occ,
+                              momentum)
+        out = self.norm2.grid(dense_conv(torch.relu(out), self.conv2.kernel,
+                                         3, dt), occ, momentum)
+        res = x
+        if self.downsample:
+            res = self.downsample_norm.grid(
+                torch.matmul(x, self.downsample_conv.kernel[0].to(dt)), occ,
+                momentum)
+        return torch.relu(out + res)
+
+
+def dense_kernel(w: torch.Tensor, k: int, dt, transpose: bool = False):
+    """A (k^3, Cin, Cout) kernel with x-fastest offsets as a torch conv
+    weight over (B, C, X, Y, Z) grids, in ``dt``: (Cout, Cin, kx, ky, kz),
+    or (Cin, Cout, kx, ky, kz) for ``conv_transpose3d`` (JAX
+    ``_to_dense_kernel``: offset ``ix + k*iy + k*k*iz``)."""
+    w = w.reshape(k, k, k, w.shape[1], w.shape[2])  # (iz, iy, ix, ci, co)
+    return w.permute(*((3, 4) if transpose else (4, 3)), 2, 1, 0).to(dt)
+
+
+def dense_conv(x: torch.Tensor, w: torch.Tensor, k: int, dt, *,
+               stride: int = 1, transpose: bool = False) -> torch.Tensor:
+    """A dense conv of a (B, Xm, Ym, Zm, C) margined grid in ``dt``, as
+    the JAX package's XLA convs map margined grids to margined grids:
+    stride 1 pads k // 2; the stride-2 k=2 down pads the margins (coarse
+    interior o reads fine cells 2o + d); the k=2 transposed up crops them
+    (fine cell 2p + d receives coarse p through W[d]). The grid is viewed
+    channels-first over its channel-last storage (channels_last_3d), and
+    the output viewed back."""
+    xs = x.to(dt).permute(0, 4, 1, 2, 3)
+    if transpose:
+        out = F.conv_transpose3d(xs, dense_kernel(w, k, dt, True), stride=2,
+                                 padding=(MX, MY, MZ))
+    elif stride == 2:
+        out = F.conv3d(xs, dense_kernel(w, k, dt), stride=2,
+                       padding=(MX, MY, MZ))
+    else:
+        out = F.conv3d(xs, dense_kernel(w, k, dt), padding=k // 2)
+    return out.permute(0, 2, 3, 4, 1)
 
 
 def into_dest(skip: torch.Tensor, skip_c: int, cout: int) -> torch.Tensor:
@@ -208,6 +321,7 @@ class DenseMinkUNet(nn.Module):
                  compute_dtype: str = "bfloat16", stem_impl: str = "tiled",
                  up_impl: Optional[str] = None):
         super().__init__()
+        self.remat = False  # train_forward's block remat (create_train_state)
         if stem_impl not in STEM_IMPLS:
             raise ValueError(f"stem_impl must be one of {STEM_IMPLS}, got {stem_impl!r}")
         up_impl = default_up_impl() if up_impl is None else up_impl
@@ -350,6 +464,68 @@ class DenseMinkUNet(nn.Module):
             x = self._blocks(f"block{5 + d}", self.layers[4 + d], x, occ[lvl],
                              tiles[ck], tile_shapes[ck], in_perm)
         # gather the point rows first; the 1x1 head runs on those rows only
+        rows = x.reshape(n_cells, x.shape[-1])[flat_idx.long().clamp(0, n_cells - 1)]
+        out = (rows @ self.final.kernel[0].to(dt)).float() + self.final.bias
+        return torch.where((valid > 0)[:, None], out, torch.zeros_like(out))
+
+    def train_forward(self, feats: torch.Tensor, flat_idx: torch.Tensor,
+                      valid: torch.Tensor, grid_dims: Tuple[int, int, int],
+                      bn_momentum: float = 0.1,
+                      n_scenes: int = 1) -> torch.Tensor:
+        """The training route (the JAX package's ``conv_impl="xla"``
+        forward, ``apply(..., True, bn_momentum, n_scenes=B)``): the point
+        rows scattered into B stacked margined grids (``flat_idx`` carries
+        scene s's offset s * n_cells, ``data.dense_prep.
+        dense_flat_ids_batched``), masked dense convs, train-mode norms
+        that update the running statistics with ``bn_momentum``, the 1x1
+        head on the gathered rows. Returns (N, Cout) float32 rows, zero at
+        invalid rows. With ``remat`` and autograd on, each residual block
+        is recomputed in the backward."""
+        dt = _DTYPES[self.compute_dtype]
+        dx, dy, dz = grid_dims
+        if dx % 16 or dy % 16 or dz % 16:
+            raise ValueError(f"grid dims {grid_dims} must be multiples of 16")
+        shape = (n_scenes, dx + 2 * MX, dy + 2 * MY, dz + 2 * MZ)
+        n_cells = shape[0] * shape[1] * shape[2] * shape[3]
+        keep = (valid > 0) & (flat_idx >= 0)
+        ids = flat_idx[keep].long()
+        x = feats.new_zeros((n_cells, self.in_channels), dtype=dt)
+        x = x.index_put((ids,), feats[keep].to(dt)).view(shape + (-1,))
+        occ0 = torch.zeros(n_cells, dtype=torch.float32, device=feats.device)
+        occ0[ids] = 1.0
+        occ = [occ0.view(shape)]
+        for _ in range(4):
+            o = occ[-1][:, MX:-MX, MY:-MY, MZ:-MZ]
+            occ.append(F.pad(F.max_pool3d(o[:, None], 2)[:, 0],
+                             (MZ, MZ, MY, MY, MX, MX)))
+        mom = bn_momentum
+        use_remat = self.remat and torch.is_grad_enabled()
+
+        def blocks(name, n, x, o):
+            for j in range(n):
+                blk = getattr(self, f"{name}_{j}")
+                x = (remat(blk.dense, x, o, mom, dt) if use_remat
+                     else blk.dense(x, o, mom, dt))
+            return x
+
+        x = dense_conv(x, self.conv0p1s1.kernel, self.stem_kernel, dt)
+        out_p1 = torch.relu(self.bn0.grid(x, occ[0], mom))
+        skips, x = [], out_p1
+        for i in range(4):
+            x = dense_conv(x, getattr(self, f"conv{i + 1}p{1 << i}s2").kernel,
+                           2, dt, stride=2)
+            x = torch.relu(getattr(self, f"bn{i + 1}").grid(x, occ[i + 1], mom))
+            x = blocks(f"block{i + 1}", self.layers[i], x, occ[i + 1])
+            skips.append(x)
+        skip_chs = [self.init_dim] + list(self.planes[:3])
+        for d in range(4):
+            lvl = 3 - d
+            up = getattr(self, f"convtr{4 + d}p{1 << (lvl + 1)}s2")
+            x = dense_conv(x, up.kernel, 2, dt, transpose=True)
+            x = torch.relu(getattr(self, f"bntr{4 + d}").grid(x, occ[lvl], mom))
+            skip = skips[lvl - 1] if lvl >= 1 else out_p1
+            x = torch.cat([x, skip[..., :skip_chs[lvl]]], -1)
+            x = blocks(f"block{5 + d}", self.layers[4 + d], x, occ[lvl])
         rows = x.reshape(n_cells, x.shape[-1])[flat_idx.long().clamp(0, n_cells - 1)]
         out = (rows @ self.final.kernel[0].to(dt)).float() + self.final.bias
         return torch.where((valid > 0)[:, None], out, torch.zeros_like(out))

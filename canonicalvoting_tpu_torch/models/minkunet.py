@@ -18,7 +18,10 @@ sparse model's (a trained one) on the dense backbone.
 
 The forward takes the pyramid's tables on the device (``PyramidArrays.to``):
 rows past ``nvalid`` are padding, which no valid row reads; their outputs
-are not zero, and callers mask them with the valid rows.
+are not zero, and callers mask them with the valid rows. With ``remat``
+(``tpu.train_remat``) a training forward recomputes each residual block in
+the backward (``models/norm.py:remat``), as the JAX package's ``nn.remat``
+does; outputs, gradients and running statistics are the same.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 from torch import nn
 
 from canonicalvoting_tpu_torch.models.dense_unet import DenseMinkUNet
-from canonicalvoting_tpu_torch.models.norm import MaskedBatchNorm
+from canonicalvoting_tpu_torch.models.norm import MaskedBatchNorm, remat
 from canonicalvoting_tpu_torch.models.resnet import BLOCKS, SparseConv
 
 
@@ -41,6 +44,7 @@ class MinkUNetBase(nn.Module):
                  compute_dtype: str = "bfloat16", return_endpoints: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.remat = False  # block remat in training (create_train_state)
         self.in_channels, self.out_channels = in_channels, out_channels
         self.block, self.layers, self.planes = block, tuple(layers), tuple(planes)
         self.init_dim, self.stem_kernel = init_dim, stem_kernel
@@ -81,8 +85,11 @@ class MinkUNetBase(nn.Module):
                     return_endpoints=self.return_endpoints)
 
     def _blocks(self, name, n, x, nbr, nvalid, train, mom):
+        use_remat = self.remat and train and torch.is_grad_enabled()
         for j in range(n):
-            x = getattr(self, f"{name}_{j}")(x, nbr, nvalid, train, mom)
+            blk = getattr(self, f"{name}_{j}")
+            x = (remat(blk, x, nbr, nvalid, train, mom) if use_remat
+                 else blk(x, nbr, nvalid, train, mom))
         return x
 
     def forward(self, feats: torch.Tensor, pyramid: Dict[str, object],
@@ -180,18 +187,23 @@ def sparse_twin(dense: DenseMinkUNet) -> MinkUNetBase:
     return m.to(next(dense.parameters()).device)
 
 
-def dense_twin(sparse: MinkUNetBase) -> DenseMinkUNet:
-    """A ``DenseMinkUNet`` with ``sparse``'s plan and weights (a copy), on
+def dense_twin(model) -> DenseMinkUNet:
+    """A ``DenseMinkUNet`` with ``model``'s plan and weights (a copy), on
     its device: the dense backbone of the evaluators runs a model trained on
-    the gather form. Basic blocks only, as the dense model has."""
-    if sparse.block != "basic":
+    the gather form (a ``MinkUNetBase``; basic blocks only, as the dense
+    model has) or on the dense training route (a ``DenseMinkUNet``: its
+    twin without the training-only ``remat``)."""
+    if isinstance(model, DenseMinkUNet):
+        m = DenseMinkUNet(**model.config())
+    elif model.block != "basic":
         raise ValueError(f"the dense backbone has basic blocks only, not "
-                         f"{sparse.block!r}")
-    m = DenseMinkUNet(sparse.in_channels, sparse.out_channels,
-                      layers=sparse.layers, planes=sparse.planes,
-                      init_dim=sparse.init_dim, stem_kernel=sparse.stem_kernel,
-                      compute_dtype=sparse.compute_dtype)
-    m.load_state_dict({k: v.detach().cpu() for k, v in sparse.state_dict().items()},
+                         f"{model.block!r}")
+    else:
+        m = DenseMinkUNet(model.in_channels, model.out_channels,
+                          layers=model.layers, planes=model.planes,
+                          init_dim=model.init_dim,
+                          stem_kernel=model.stem_kernel,
+                          compute_dtype=model.compute_dtype)
+    m.load_state_dict({k: v.detach().cpu() for k, v in model.state_dict().items()},
                       strict=True)
-    return m.to(next(sparse.parameters()).device)
-
+    return m.to(next(model.parameters()).device)

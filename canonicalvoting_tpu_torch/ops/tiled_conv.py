@@ -13,8 +13,8 @@ The kernels are in ``csrc/tiled_conv.cu``; its header says what bounds them
 on the H100 and how they are built.
 
 Grids are margined and channel-last, (X + 2MX, Y + 2MY, Z + 2MZ, C), with
-their real channel count: bfloat16 on the card (the kernels' only dtype),
-bfloat16 or float32 on the CPU. ``tiles`` is a (T, 3)
+their real channel count, bfloat16 or float32 (``tiled_block3d``: bfloat16
+on the card; its float32 instance is on no path). ``tiles`` is a (T, 3)
 int32 tensor of tile coordinates over the interior of the OUTPUT grid;
 ``occ`` is the output level's margined (Xm, Ym, Zm) float32 occupancy grid.
 Weights are (K, Cin, Cout) with x-fastest offsets (``idx = dx + k*dy +
@@ -22,7 +22,11 @@ k*k*dz``). Cells outside the listed tiles are exact zeros.
 
 Each wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors, and raises for anything else: there is no fallback from one to the
-other. ``<wrapper>.launches`` counts kernel launches.
+other. On the card a bfloat16 grid runs the tensor-core kernel (its launch
+symbol ``<name>_launch``) and a float32 grid the FFMA kernel
+(``<name>_f32_launch``: exact float32 products, no TF32);
+``<wrapper>.launches`` counts the bfloat16 launches and
+``<wrapper>.launches_f32`` the float32 ones.
 """
 
 from __future__ import annotations
@@ -54,11 +58,23 @@ _ARGTYPES = {
     "tiled_up2_into_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I,
                               _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                               _P],
+    "tiled_conv3d_f32_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I,
+                                _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P,
+                                _P, _I, _P, _P, _P],
+    "tiled_down2_f32_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+                               _P],
     "tiled_block3d_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P,
                              _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                              _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
+# the prefolded stem's and the ups' float32 launchers take the bfloat16
+# ones' arguments
+for _name in ("tiled_conv3d_prefolded", "tiled_up2", "tiled_up2_into"):
+    _ARGTYPES[f"{_name}_f32_launch"] = _ARGTYPES[f"{_name}_launch"]
 _launcher = functools.partial(launcher, "tiled_conv", _ARGTYPES)
+#: the grid dtypes of the card's kernels, and their launch symbols' suffix
+KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
 # the JAX kernel keeps one parity of [skip | conv] in one 128-lane block
 # (tiled_conv.py:2013); the port keeps its limit
 UP_INTO_MAX_CHANNELS = 128
@@ -75,8 +91,9 @@ def _f32(t: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
 
 
 def _like(t: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
-    """Weights in the grid's dtype and device: the kernels run bfloat16 on
-    the tensor cores."""
+    """Weights in the grid's dtype and device: a bfloat16 grid's kernel
+    multiplies bfloat16 on the tensor cores, a float32 grid's float32 on the
+    FFMA units."""
     if t is None:
         return None
     return t.to(device=x.device, dtype=x.dtype).contiguous()
@@ -87,13 +104,22 @@ def _stream() -> int:
 
 
 def _route(x: torch.Tensor) -> str:
+    """"plain" for a CPU grid; for a CUDA grid, the launch symbols' suffix
+    of its dtype ("" bfloat16, "_f32" float32)."""
     if x.is_cuda:
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA kernels take bfloat16 grids, got {x.dtype}")
-        return "cuda"
+        if x.dtype not in KERNEL_DTYPES:
+            raise TypeError(f"the CUDA kernels take bfloat16 or float32 grids, "
+                            f"got {x.dtype}")
+        return KERNEL_DTYPES[x.dtype]
     if x.device.type == "cpu":
         return "plain"
     raise RuntimeError(f"no kernel for tensors on {x.device}")
+
+
+def _count(wrapper, suffix: str) -> None:
+    """One launch on ``wrapper``'s counter of the grid's dtype."""
+    name = "launches_f32" if suffix else "launches"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def _check_grid(x: torch.Tensor, name: str) -> None:
@@ -442,7 +468,8 @@ def tiled_conv3d(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
             raise ValueError(f"residual {tuple(residual.shape)} does not fit")
     kw = dict(tile_shape=tile_shape, scale=scale, bias=bias, occ=occ,
               relu_out=relu_out)
-    if _route(x) == "plain":
+    route = _route(x)
+    if route == "plain":
         return tiled_conv3d_plain(x, w, tiles, kernel_size=k, residual=residual,
                                   res_w=res_w, res_scale=res_scale,
                                   res_bias=res_bias, **kw)
@@ -462,20 +489,21 @@ def tiled_conv3d(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
     sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
     n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
     rows = torch.empty(n_rows + 2, dtype=torch.int32, device=dev)
-    s_max, part = _split_scratch(k ** 3 * cpad // K_CHUNK, n_rows, cout,
-                                 int(rwt is not None), dev)
-    rc = _launcher("tiled_conv3d_launch")(
-        x.data_ptr(), cin, *x.shape[:3], wt.data_ptr(), cpad, k, cout,
-        tiles.data_ptr(), n_rows, *tile_shape, _ptr(sc), _ptr(bi), _ptr(oc),
-        _ptr(res), 0 if res is None else res.shape[3], _ptr(rwt), crpad,
-        _ptr(rs), _ptr(rb), int(relu_out), rows.data_ptr(), out.data_ptr(),
-        _ptr(part), s_max, _stream())
+    args = [x.data_ptr(), cin, *x.shape[:3], wt.data_ptr(), cpad, k, cout,
+            tiles.data_ptr(), n_rows, *tile_shape, _ptr(sc), _ptr(bi), _ptr(oc),
+            _ptr(res), 0 if res is None else res.shape[3], _ptr(rwt), crpad,
+            _ptr(rs), _ptr(rb), int(relu_out), rows.data_ptr(), out.data_ptr()]
+    if not route:  # the bfloat16 kernel splits K when few rows are live
+        s_max, part = _split_scratch(k ** 3 * cpad // K_CHUNK, n_rows, cout,
+                                     int(rwt is not None), dev)
+        args += [_ptr(part), s_max]
+    rc = _launcher(f"tiled_conv3d{route}_launch")(*args, _stream())
     check(rc, "tiled_conv3d")
-    tiled_conv3d.launches += 1
+    _count(tiled_conv3d, route)
     return out
 
 
-tiled_conv3d.launches = 0
+tiled_conv3d.launches = tiled_conv3d.launches_f32 = 0
 
 
 def tiled_conv3d_prefolded(xf: torch.Tensor, w: torch.Tensor,
@@ -510,7 +538,8 @@ def tiled_conv3d_prefolded(xf: torch.Tensor, w: torch.Tensor,
     _check_occ(occ, xf.shape[:3])
     kw = dict(tile_shape=tile_shape, kernel_size=k, scale=scale, bias=bias,
               occ=occ, relu_out=relu_out)
-    if _route(xf) == "plain":
+    route = _route(xf)
+    if route == "plain":
         return tiled_conv3d_prefolded_plain(xf, w, tiles, **kw)
     _check_cells(xf.shape)
     dev = xf.device
@@ -520,16 +549,16 @@ def tiled_conv3d_prefolded(xf: torch.Tensor, w: torch.Tensor,
     sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
     n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
     rows = torch.empty(n_rows + 2, dtype=torch.int32, device=dev)
-    rc = _launcher("tiled_conv3d_prefolded_launch")(
+    rc = _launcher(f"tiled_conv3d_prefolded{route}_launch")(
         xf.data_ptr(), cf, *xf.shape[:3], wt.data_ptr(), cpad, k, cout,
         tiles.data_ptr(), n_rows, *tile_shape, _ptr(sc), _ptr(bi), _ptr(oc),
         int(relu_out), rows.data_ptr(), out.data_ptr(), _stream())
     check(rc, "tiled_conv3d_prefolded")
-    tiled_conv3d_prefolded.launches += 1
+    _count(tiled_conv3d_prefolded, route)
     return out
 
 
-tiled_conv3d_prefolded.launches = 0
+tiled_conv3d_prefolded.launches = tiled_conv3d_prefolded.launches_f32 = 0
 
 
 def tiled_down2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
@@ -562,7 +591,8 @@ def tiled_down2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
     _check_occ(occ, cshape)
     kw = dict(tile_shape=tile_shape, scale=scale, bias=bias, occ=occ,
               relu_out=relu_out)
-    if _route(x) == "plain":
+    route = _route(x)
+    if route == "plain":
         return tiled_down2_plain(x, w, tiles, **kw)
     _check_cells(x.shape)
     dev = x.device
@@ -572,18 +602,19 @@ def tiled_down2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
     sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
     n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
     rows = torch.empty(n_rows + 2, dtype=torch.int32, device=dev)
-    s_max, part = _split_scratch(8 * cpad // K_CHUNK, n_rows, cout, 0, dev)
-    rc = _launcher("tiled_down2_launch")(
-        x.data_ptr(), x.shape[3], *x.shape[:3], wt.data_ptr(), cpad, cout,
-        tiles.data_ptr(), n_rows, *tile_shape, *cshape, _ptr(sc), _ptr(bi),
-        _ptr(oc), int(relu_out), rows.data_ptr(), out.data_ptr(), _ptr(part),
-        s_max, _stream())
+    args = [x.data_ptr(), x.shape[3], *x.shape[:3], wt.data_ptr(), cpad, cout,
+            tiles.data_ptr(), n_rows, *tile_shape, *cshape, _ptr(sc), _ptr(bi),
+            _ptr(oc), int(relu_out), rows.data_ptr(), out.data_ptr()]
+    if not route:  # the bfloat16 kernel splits K when few rows are live
+        s_max, part = _split_scratch(8 * cpad // K_CHUNK, n_rows, cout, 0, dev)
+        args += [_ptr(part), s_max]
+    rc = _launcher(f"tiled_down2{route}_launch")(*args, _stream())
     check(rc, "tiled_down2")
-    tiled_down2.launches += 1
+    _count(tiled_down2, route)
     return out
 
 
-tiled_down2.launches = 0
+tiled_down2.launches = tiled_down2.launches_f32 = 0
 
 
 def tiled_up2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
@@ -611,7 +642,8 @@ def tiled_up2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
             raise ValueError(f"skip {tuple(skip.shape)} does not fit {fshape}")
     kw = dict(tile_shape=tile_shape, scale=scale, bias=bias, occ=occ,
               relu_out=relu_out)
-    if _route(x) == "plain":
+    route = _route(x)
+    if route == "plain":
         return tiled_up2_plain(x, w, tiles, skip=skip, skip_c=skip_c, **kw)
     _check_cells(fshape)
     dev = x.device
@@ -622,18 +654,18 @@ def tiled_up2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
     sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
     n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
     rows = torch.empty(n_rows // 8 + 2, dtype=torch.int32, device=dev)
-    rc = _launcher("tiled_up2_launch")(
+    rc = _launcher(f"tiled_up2{route}_launch")(
         x.data_ptr(), x.shape[3], *x.shape[:3], wt.data_ptr(), cpad, cout,
         tiles.data_ptr(), n_rows, *tile_shape, *fshape,
         _ptr(sc), _ptr(bi), _ptr(oc), _ptr(sk),
         0 if sk is None else sk.shape[3], skip_c, int(relu_out),
         rows.data_ptr(), out.data_ptr(), _stream())
     check(rc, "tiled_up2")
-    tiled_up2.launches += 1
+    _count(tiled_up2, route)
     return out
 
 
-tiled_up2.launches = 0
+tiled_up2.launches = tiled_up2.launches_f32 = 0
 
 
 def tiled_up2_into(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
@@ -672,7 +704,8 @@ def tiled_up2_into(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
         raise ValueError(f"up tiles need even dims, got {tile_shape}")
     kw = dict(tile_shape=tile_shape, scale=scale, bias=bias, occ=occ,
               relu_out=relu_out)
-    if _route(x) == "plain":
+    route = _route(x)
+    if route == "plain":
         return tiled_up2_into_plain(x, w, tiles, dest=dest, skip_c=skip_c, **kw)
     _check_cells(fshape)
     dev = x.device
@@ -680,17 +713,17 @@ def tiled_up2_into(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
     sc, bi, oc = _f32(scale, dev), _f32(bias, dev), _f32(occ, dev)
     n_rows = tiles.shape[0] * tile_shape[0] * tile_shape[1] * tile_shape[2]
     rows = torch.empty(n_rows // 8 + 2, dtype=torch.int32, device=dev)
-    rc = _launcher("tiled_up2_into_launch")(
+    rc = _launcher(f"tiled_up2_into{route}_launch")(
         x.data_ptr(), x.shape[3], *x.shape[:3], wt.data_ptr(), cpad, cout,
         tiles.data_ptr(), n_rows, *tile_shape, *fshape, _ptr(sc), _ptr(bi),
         _ptr(oc), skip_c, dest.shape[3], int(relu_out), rows.data_ptr(),
         dest.data_ptr(), _stream())
     check(rc, "tiled_up2_into")
-    tiled_up2_into.launches += 1
+    _count(tiled_up2_into, route)
     return dest
 
 
-tiled_up2_into.launches = 0
+tiled_up2_into.launches = tiled_up2_into.launches_f32 = 0
 
 
 def tiled_block3d(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -726,8 +759,12 @@ def tiled_block3d(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     kw = dict(tile_shape=tile_shape, scale1=scale1, bias1=bias1, scale2=scale2,
               bias2=bias2, occ=occ, res_w=res_w, res_scale=res_scale,
               res_bias=res_bias)
-    if _route(x) == "plain":
+    route = _route(x)
+    if route == "plain":
         return tiled_block3d_plain(x, w1, w2, tiles, **kw)
+    if route:
+        raise TypeError("tiled_block3d takes bfloat16 grids on the card: its "
+                        "float32 instance is on no path and is not ported")
     _check_cells(x.shape)
     dev = x.device
     out = torch.zeros(x.shape[:3] + (cout,), dtype=x.dtype, device=dev)

@@ -7,12 +7,16 @@ a checkpoint and a full detection + Scan2CAD mAP validation every
 work directory (either package's). Ground truth comes from the results_gt
 txt files (ScanNet) or from a callback (synthetic runs).
 
-It trains the gather-form sparse backbone on the card unless
-``device="cpu"``; the validation runs ``DetectionPipeline`` on the dense
-backbone (the card's tiled kernels) with the trained weights.
-``tpu.train_microbatch`` k > 0 accumulates gradients over microbatches of
-k scenes; 0 (the default) steps on the whole batch. The JAX package
-forces k = 1 on its TPU only.
+It trains on the card unless ``device="cpu"``: the gather-form sparse
+backbone, or with ``tpu.train_backbone=dense`` its masked dense twin
+(``DenseMinkUNet.train_forward`` on ``collate_joint_dense`` batches);
+``tpu.train_remat`` recomputes each residual block in the backward. The
+validation runs ``DetectionPipeline`` on the dense backbone (the card's
+tiled kernels, at the model's ``compute_dtype``: ``tpu.conv_dtype``,
+bfloat16 or float32) with the trained weights. ``tpu.train_microbatch``
+k > 0 accumulates gradients over microbatches of k scenes; 0 (the default)
+steps on the whole batch, except on the dense route on the card, which
+takes 1 as the JAX package's accelerator does.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from typing import Callable, Optional
 
 import torch
 
-from canonicalvoting_tpu_torch.data.collate import collate_joint
+from canonicalvoting_tpu_torch.data.collate import (
+    collate_joint, collate_joint_dense)
 from canonicalvoting_tpu_torch.data.geometry import NCLASSES
 from canonicalvoting_tpu_torch.data.loader import DataLoader
 from canonicalvoting_tpu_torch.decode.peeling import PeelConfig
@@ -38,7 +43,8 @@ from canonicalvoting_tpu_torch.train.checkpoint import (
 from canonicalvoting_tpu_torch.train.schedules import (
     bn_momentum_for_epoch, lr_for_epoch)
 from canonicalvoting_tpu_torch.train.steps import (
-    check_ported_routes, create_train_state, make_joint_train_step)
+    check_ported_routes, create_train_state, create_train_state_dense,
+    make_joint_train_step, train_backbone, train_microbatch)
 from canonicalvoting_tpu_torch.utils.meters import AverageMeter
 
 logger = logging.getLogger(__name__)
@@ -100,12 +106,21 @@ def run_joint_training(cfg, train_dataset, val_dataset, workdir: str = ".",
         model = MinkUNet34C(cfg.in_channels, 6 * NCLASSES + NCLASSES + 1,
                            compute_dtype=cfg.tpu.conv_dtype,
                            generator=torch.Generator().manual_seed(0))
-    state = create_train_state(model, cfg.weight_decay, device)
-    step_fn = make_joint_train_step(state.model, cfg)
+    backbone = train_backbone(cfg)
+    mb = train_microbatch(cfg, backbone, device)
+    if backbone == "dense":
+        state = create_train_state_dense(model, cfg.weight_decay, device,
+                                         remat=cfg.tpu.train_remat)
+        collate = collate_joint_dense
+    else:
+        state = create_train_state(model, cfg.weight_decay, device,
+                                   remat=cfg.tpu.train_remat)
+        collate = collate_joint
+    step_fn = make_joint_train_step(state.model, cfg, backbone=backbone)
     loader = DataLoader(
         train_dataset, batch_size=cfg.batch_size,
-        collate_fn=functools.partial(collate_joint, cap_multiple=cap_multiple,
-                                     microbatch=cfg.tpu.train_microbatch),
+        collate_fn=functools.partial(collate, cap_multiple=cap_multiple,
+                                     microbatch=mb),
         shuffle=True, num_workers=cfg.num_workers, drop_last=True)
     try:
         return train_epochs(
@@ -119,7 +134,8 @@ def run_joint_training(cfg, train_dataset, val_dataset, workdir: str = ".",
 def run_joint_validation(cfg, model, val_dataset, gt_lookup=None,
                          device="cuda"):
     """Detection + Scan2CAD mAP over the validation split (upstream
-    train_joint.py:293-473) with ``model``'s weights on the dense backbone;
+    train_joint.py:293-473) with ``model``'s weights (a ``MinkUNetBase`` or
+    a ``DenseMinkUNet``) on the dense backbone at its compute dtype;
     returns {thresh: compute_map dict} at 0.25 and 0.5."""
     pipe = DetectionPipeline(
         model=dense_twin(model), res=cfg.scannet_res, num_rots=120,

@@ -8,7 +8,9 @@ detection + Scan2CAD mAP validation of the one category
 (upstream train_separate.py:301-455): each validation scene runs through
 ``SeparateDetectionPipeline`` (the dense backbone on the card's kernels,
 the prefolded stem), its detections labeled with the trained category,
-and the category's AP and recall are logged.
+and the category's AP and recall are logged. ``tpu.train_backbone``,
+``tpu.train_remat`` and ``tpu.train_microbatch`` act as in the joint loop
+(the dense route on ``collate_separate(dense=True)`` batches).
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from canonicalvoting_tpu_torch.metrics.ap import compute_map
 from canonicalvoting_tpu_torch.models.minkunet import MinkUNet34C, dense_twin
 from canonicalvoting_tpu_torch.train.joint_loop import train_epochs
 from canonicalvoting_tpu_torch.train.steps import (
-    check_ported_routes, create_train_state, make_separate_train_step)
+    check_ported_routes, create_train_state, create_train_state_dense,
+    make_separate_train_step, train_backbone, train_microbatch)
 
 logger = logging.getLogger(__name__)
 
@@ -49,13 +52,21 @@ def run_separate_training(cfg, train_dataset, val_dataset, workdir: str = ".",
     if model is None:
         model = MinkUNet34C(cfg.in_channels, 8, compute_dtype=cfg.tpu.conv_dtype,
                             generator=torch.Generator().manual_seed(0))
-    state = create_train_state(model, cfg.weight_decay, device)
-    step_fn = make_separate_train_step(state.model, cfg, max_objects)
+    backbone = train_backbone(cfg)
+    if backbone == "dense":
+        state = create_train_state_dense(model, cfg.weight_decay, device,
+                                         remat=cfg.tpu.train_remat)
+    else:
+        state = create_train_state(model, cfg.weight_decay, device,
+                                   remat=cfg.tpu.train_remat)
+    step_fn = make_separate_train_step(state.model, cfg, max_objects,
+                                       backbone=backbone)
     loader = DataLoader(
         train_dataset, batch_size=cfg.batch_size,
         collate_fn=functools.partial(
             collate_separate, cap_multiple=cap_multiple,
-            max_objects=max_objects, microbatch=cfg.tpu.train_microbatch),
+            max_objects=max_objects, dense=backbone == "dense",
+            microbatch=train_microbatch(cfg, backbone, device)),
         shuffle=True, num_workers=cfg.num_workers, drop_last=True)
     try:
         return train_epochs(

@@ -1,4 +1,4 @@
-"""Train steps on the gather-form sparse backbone.
+"""Train steps on the gather-form sparse backbone and on the dense route.
 
 The port's counterpart of ``canonicalvoting_tpu/train/steps.py``. The
 optimizer is ``torch.optim.Adam`` (or ``AdamW`` with a weight decay), whose
@@ -18,25 +18,33 @@ through them; the gradients and losses are averaged over the microbatches
 and the optimizer updates once, as the JAX package's gradient accumulation
 does.
 
-Only the gather backbone is ported: ``tpu.train_backbone="dense"`` (the
-masked dense twin), ``tpu.train_remat`` and mesh training raise
-(:func:`check_ported_routes`). ``tpu.train_dense_levels`` is parsed and the
-gather form runs at every site: the JAX package's scatter-dense engine
-(``ops/scatter_conv.py``) computes the same outputs through another
-mechanism.
+``backbone="gather"`` steps a ``MinkUNetBase`` on ``collate_joint`` /
+``collate_separate`` batches; ``backbone="dense"`` (``tpu.train_backbone=
+dense``) steps the masked dense twin, ``DenseMinkUNet.train_forward``, on
+``collate_joint_dense`` / ``collate_separate(dense=True)`` batches: the
+same parameter names, so checkpoints and the validation's dense backbone
+interchange with the gather form's. Its float32 convs run on the card with
+TF32 off (cuDNN's default rounds float32 conv operands to TF32).
+``tpu.train_remat`` is :func:`create_train_state`'s ``remat``.
+Mesh training raises (:func:`check_ported_routes`).
+``tpu.train_dense_levels`` is parsed and the gather form runs at every
+site: the JAX package's scatter-dense engine (``ops/scatter_conv.py``)
+computes the same outputs through another mechanism.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, List
 
 import torch
 
 from canonicalvoting_tpu_torch.data.collate import batch_parts, upload_batch
+from canonicalvoting_tpu_torch.models.minkunet import dense_twin
 from canonicalvoting_tpu_torch.train.losses import joint_losses, separate_losses
 
-BACKBONES = ("auto", "gather")
+BACKBONES = ("auto", "gather", "dense")
 
 
 @dataclass
@@ -64,14 +72,27 @@ def make_optimizer(params: Iterable, weight_decay: float = 0.0,
 
 
 def create_train_state(model: torch.nn.Module, weight_decay: float = 0.0,
-                       device="cuda") -> TrainState:
-    """``model`` on ``device`` in training mode, with a fresh optimizer."""
+                       device="cuda", remat: bool = False) -> TrainState:
+    """``model`` on ``device`` in training mode, with a fresh optimizer;
+    ``remat`` (``tpu.train_remat``) recomputes each residual block in the
+    backward (``models/norm.py:remat``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training runs on the GPU and none is available; "
                            "pass device='cpu' to train on the CPU")
     model = model.to(device).train()
+    model.remat = remat
     return TrainState(model, make_optimizer(model.parameters(), weight_decay))
+
+
+def create_train_state_dense(model: torch.nn.Module, weight_decay: float = 0.0,
+                             device="cuda", remat: bool = False) -> TrainState:
+    """:func:`create_train_state` of ``model``'s masked dense twin (a
+    ``DenseMinkUNet`` with its weights; ``model`` a ``MinkUNetBase`` or a
+    ``DenseMinkUNet``), the dense route's model. The JAX package
+    initializes it from a first batch; here the weights come with
+    ``model``."""
+    return create_train_state(dense_twin(model), weight_decay, device, remat)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr) -> None:
@@ -108,25 +129,48 @@ def parse_dense_sites(spec: str, n_levels: int = 5) -> frozenset:
     return frozenset(out)
 
 
-def check_ported_routes(cfg) -> None:
-    """Raise for the training routes of the config that are not ported:
-    the dense backbone, block remat and mesh training."""
+def train_backbone(cfg) -> str:
+    """``tpu.train_backbone`` as a step's ``backbone``: "auto" trains the
+    gather form, the JAX package's measured choice."""
     backbone = cfg.tpu.train_backbone
-    if backbone == "dense":
-        raise NotImplementedError(
-            "the dense training backbone (DenseMinkUNet with a backward) is "
-            "not ported yet (ROADMAP A9c); train on tpu.train_backbone=gather")
     if backbone not in BACKBONES:
         raise ValueError(f"tpu.train_backbone must be one of {BACKBONES}, "
                          f"got {backbone!r}")
-    if cfg.tpu.train_remat:
-        raise NotImplementedError(
-            "tpu.train_remat (block rematerialization) is not ported yet "
-            "(ROADMAP A9c)")
+    return "gather" if backbone == "auto" else backbone
+
+
+def train_microbatch(cfg, backbone: str, device) -> int:
+    """The scenes a microbatch: ``tpu.train_microbatch``, and 1 for 0 on
+    the dense route on the card, as the JAX loops force it on their
+    accelerator (JAX ``train/joint_loop.py:101-103``): a whole-batch dense
+    backward at ScanNet scale does not fit its memory."""
+    mb = cfg.tpu.train_microbatch
+    if mb == 0 and backbone == "dense" and torch.device(device).type == "cuda":
+        return 1
+    return mb
+
+
+def check_ported_routes(cfg) -> None:
+    """Raise for the training routes of the config that are not ported
+    (mesh training), and for an unknown backbone."""
+    train_backbone(cfg)
     if cfg.tpu.mesh_data * cfg.tpu.mesh_model > 1:
         raise NotImplementedError(
             "mesh training (tpu.mesh_data x tpu.mesh_model > 1) is not ported "
             "yet (ROADMAP A11); train on one device")
+
+
+@contextlib.contextmanager
+def exact_float32_convs(on: bool):
+    """cuDNN's float32 convs without TF32 inside (when ``on``), the
+    caller's setting restored after."""
+    old = torch.backends.cudnn.allow_tf32
+    if on:
+        torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
 
 
 def accumulate_grads(model: torch.nn.Module, batch: Dict,
@@ -134,15 +178,17 @@ def accumulate_grads(model: torch.nn.Module, batch: Dict,
     """One forward and backward a microbatch (or of the whole batch), in
     order; leaves the gradients averaged over the microbatches in the
     parameters' ``.grad`` and returns the averaged losses (detached).
-    Autograd is on inside, whatever the caller's grad mode."""
+    Autograd is on inside, whatever the caller's grad mode; a float32
+    model's convs take no TF32."""
     model.train()
     for p in model.parameters():
         p.grad = None
     device = next(model.parameters()).device
     parts = batch_parts(batch)
     total = None
+    exact = getattr(model, "compute_dtype", "") == "float32"
     for part in parts:
-        with torch.enable_grad():
+        with torch.enable_grad(), exact_float32_convs(exact):
             losses = losses_of(upload_batch(part, device), float(bn_momentum))
             losses["loss"].backward()
         losses = {k: v.detach() for k, v in losses.items()}
@@ -168,35 +214,56 @@ def _make_step(losses_of: Callable) -> Callable:
     return step
 
 
-def make_joint_train_step(model: torch.nn.Module, cfg) -> Callable:
+def _forward(model: torch.nn.Module, backbone: str):
+    """``(batch, momentum) -> (head rows, nvalid)`` of a train-mode forward
+    on the backbone's batches."""
+    if backbone not in ("gather", "dense"):
+        raise ValueError(f"backbone must be 'gather' or 'dense', got {backbone!r}")
+
+    def run(b, mom):
+        if backbone == "dense":
+            meta = b["meta"]
+            return model.train_forward(
+                b["feats"], b["flat_idx"], b["valid"], tuple(meta["grid_dims"]),
+                mom, n_scenes=meta["n_scenes"]), b["nvalid"]
+        return model(b["feats"], b["pyramid"], True, mom), b["pyramid"]["nvalid"][0]
+
+    return run
+
+
+def make_joint_train_step(model: torch.nn.Module, cfg,
+                          backbone: str = "gather") -> Callable:
     """``step(state, batch, lr, bn_momentum) -> (state, losses)`` for a
-    ``MinkUNetBase`` fed ``collate_joint`` batches."""
+    ``MinkUNetBase`` fed ``collate_joint`` batches, or (``backbone=
+    "dense"``) a ``DenseMinkUNet`` fed ``collate_joint_dense`` batches."""
     parse_dense_sites(cfg.tpu.train_dense_levels)
     xyz_weights = tuple(cfg.xyz_weights)
+    forward = _forward(model, backbone)
 
     def losses_of(b, mom):
-        out = model(b["feats"], b["pyramid"], True, mom)
+        out, nvalid = forward(b, mom)
         return joint_losses(out, b["xyz_labels"], b["scale_labels"],
-                            b["class_labels"], b["pyramid"]["nvalid"][0],
-                            xyz_weights, cfg.log_scale, cfg.xyz_factor,
-                            cfg.scale_factor)
+                            b["class_labels"], nvalid, xyz_weights,
+                            cfg.log_scale, cfg.xyz_factor, cfg.scale_factor)
 
     return _make_step(losses_of)
 
 
-def make_separate_train_step(model: torch.nn.Module, cfg,
-                             max_objects: int) -> Callable:
+def make_separate_train_step(model: torch.nn.Module, cfg, max_objects: int,
+                             backbone: str = "gather") -> Callable:
     """As :func:`make_joint_train_step`, for a per-category model fed
-    ``collate_separate`` batches (upstream train_separate.py:184-298)."""
+    ``collate_separate`` batches (``dense=True`` ones on the dense route;
+    upstream train_separate.py:184-298)."""
     parse_dense_sites(cfg.tpu.train_dense_levels)
     xyz_weights = tuple(cfg.xyz_weights)
+    forward = _forward(model, backbone)
 
     def losses_of(b, mom):
-        out = model(b["feats"], b["pyramid"], True, mom)
+        out, nvalid = forward(b, mom)
         return separate_losses(
             out, b["base_xyz"], b["scale_labels"], b["obj_labels"],
-            b["obj_id"], b["sym_code"], int(b["num_objects"]),
-            b["pyramid"]["nvalid"][0], xyz_weights, max_objects,
-            cfg.log_scale, cfg.xyz_factor, cfg.scale_factor)
+            b["obj_id"], b["sym_code"], int(b["num_objects"]), nvalid,
+            xyz_weights, max_objects, cfg.log_scale, cfg.xyz_factor,
+            cfg.scale_factor)
 
     return _make_step(losses_of)

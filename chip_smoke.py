@@ -103,8 +103,29 @@ category, symmetry labels), and runs both training loops with process
 workers on six smaller scenes: two validated epochs (the dense kernels'
 launches counted), a checkpoint each, and a second call (thread workers)
 that resumes.
+The f32 phase runs rows 1-3, 6 and 7 on float32 grids
+(tpu.conv_dtype=float32): every configuration of the float32 joint path
+(default and up_impl="into") and of the separate path's prefolded stem
+against its plain version (1e-5 of each output's peak, TF32 off), a
+bitwise repeat and exact zeros at unoccupied listed cells, timed as phase
+1 times the bf16 rows (bounds at the float32 FFMA rate); the float32 joint
+path and separate evaluator over the three scenes (exact float32 launch
+counts, per-stage ms, scenes/s, peak memory); the float32 dense backbone
+against the float32 sparse one; eval_joint and eval_separate at float32
+over a ScanNet tree. The train_dense phase holds the dense training
+route's float32 gradients to the gather step's (elementwise at a narrow
+plan, by global relative L2 at full width), times the full-width bf16 dense step (three scenes,
+microbatch 1) with and without remat beside a memory reckoning, checks a
+falling loss and moving BN buffers, times a separate dense step and runs
+one epoch of each loop on the dense route at float32 (validated on the
+float32 kernels). The train_remat phase holds the gather step with remat
+to the step without it (gradients, running statistics updated once, peak
+memory) and runs one epoch of each loop with tpu.train_remat=true. The hough_backward phase holds the Hough backward on the card to
+its CPU route at the joint scene's configuration, times it and checks it
+for host syncs.
 
-The last two lines are the kernels' summary and the status line. The script
+The last two lines are the kernels' summary (the nine bf16 rows, then the
+five float32 rows as <name>_f32) and the status line. The script
 exits non-zero, printing neither, if there is no CUDA device, if the port is
 missing, or if any phase fails.
 """
@@ -272,7 +293,7 @@ def make_scenes():
                        n_boxes=6, pts_per_box=3000) for _ in range(N_SCENES)]
 
 
-def build_pipeline():
+def build_pipeline(compute_dtype="bfloat16"):
     import torch
 
     from canonicalvoting_tpu_torch.data.geometry import NCLASSES
@@ -281,7 +302,8 @@ def build_pipeline():
     from canonicalvoting_tpu_torch.models import DenseMinkUNet34C
 
     torch.manual_seed(0)
-    model = DenseMinkUNet34C(3, 6 * NCLASSES + NCLASSES + 1)
+    model = DenseMinkUNet34C(3, 6 * NCLASSES + NCLASSES + 1,
+                             compute_dtype=compute_dtype)
     return DetectionPipeline(model=model, res=RES, num_rots=NUM_ROTS,
                              peel=PeelConfig(res=RES, max_boxes=64, max_iters=96),
                              cap_multiple=4096, device="cuda")
@@ -294,7 +316,8 @@ def build_separate(**kw):
     from canonicalvoting_tpu_torch.models import DenseMinkUNet34C
     from canonicalvoting_tpu_torch.utils.weights import category_state_dicts
 
-    model = DenseMinkUNet34C(3, 8, up_impl=kw.pop("up_impl", None))
+    model = DenseMinkUNet34C(3, 8, up_impl=kw.pop("up_impl", None),
+                             compute_dtype=kw.pop("compute_dtype", "bfloat16"))
     cats = kw.pop("categories", ALL_CATEGORIES)
     pipe = SeparateDetectionPipeline(
         model=model, categories=cats, res=RES, num_rots=NUM_ROTS,
@@ -515,10 +538,18 @@ def occupied_work(r, occ_of):
     return cells.shape[0], n_live, pairs
 
 
+def flops_rate(x):
+    """The card's peak rate for a grid's products: bf16 on the tensor
+    cores, float32 on the FFMA units (the float32 kernels take no TF32)."""
+    import torch
+
+    return BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+
+
 def conv_bound(r, occ_of):
     """(bound_ms, bound_by): the listed cells' inputs, outputs, residual or
     skip and occupancy moved once, weights once, all at their element sizes;
-    against the bf16 MACs of the occupied (output, tap) pairs, plus the
+    against the MACs (at the grid dtype's rate) of the occupied (output, tap) pairs, plus the
     fused 1x1 at occupied cells. The into-conv writes its conv channels
     only: the skip copy into its dest is not charged."""
     a, kw, name = r["args"], r["kw"], r["name"]
@@ -538,7 +569,7 @@ def conv_bound(r, occ_of):
         if kw.get("res_w") is not None:
             nbytes += kw["res_w"].numel() * el
             flops += 2 * live * res.shape[3] * cout
-    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_rate(x) * 1e3
     return ((t_b, "bytes") if t_b >= t_f else (t_f, "operations")), \
         {"listed_cells": rows, "occupied_cells": live, "occupied_pairs": pairs}
 
@@ -571,7 +602,7 @@ def prefold_bound(r):
     nbytes = (window.numel() * cin + cells.shape[0] * cout) * el \
         + w.numel() * el + cells.shape[0] * 4
     flops = 2 * pairs * cin * cout
-    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_rate(xf) * 1e3
     return ((t_b, "bytes") if t_b >= t_f else (t_f, "operations")), \
         {"listed_cells": int(cells.shape[0]), "occupied_cells": int(live.sum()),
          "window_cells": int(window.numel()), "occupied_pairs": pairs}
@@ -1126,7 +1157,8 @@ def unmasked_inputs(r):
     return (rand_like(a[0]),) + tuple(a[1:]), kw
 
 
-def unmasked_checks(records, kern, plain, levels, failures):
+def unmasked_checks(records, kern, plain, levels, failures,
+                    rel_tol=CONV_REL_TOL, phase=1):
     """One configuration of each occupied-row kernel at each of its
     ROW_KERNELS levels (the conv with a plain residual) on unmasked random
     inputs, against the plain version, and a repeated call bitwise equal;
@@ -1180,12 +1212,12 @@ def unmasked_checks(records, kern, plain, levels, failures):
                 torch.equal(rows[:, :skc], rows_in[:, :skc])
                 and torch.equal(rows[~listed], rows_in[~listed]))
             extra["dead_parents_present"] = extra["dead_parent_cells"] > 0
-        if not (err <= CONV_REL_TOL * scale and bitwise and all(extra.values())):
-            failures.append((key, "unmasked inputs", err, CONV_REL_TOL * scale,
+        if not (err <= rel_tol * scale and bitwise and all(extra.values())):
+            failures.append((key, "unmasked inputs", err, rel_tol * scale,
                              bitwise, extra))
-        emit({"phase": 1, "kernel": name, "check": "unmasked_inputs", "level": lvl,
-              "config": [str(v) for v in key[1:]], "max_abs_err": err,
-              "ref_max": scale, "tol": CONV_REL_TOL * scale,
+        emit({"phase": phase, "kernel": name, "check": "unmasked_inputs",
+              "level": lvl, "config": [str(v) for v in key[1:]],
+              "max_abs_err": err, "ref_max": scale, "tol": rel_tol * scale,
               "bitwise_repeat": bitwise, **extra})
         del got, again, want, a, kw
     want_done = {(n, lvl) for n, lvls in ROW_KERNELS.items() for lvl in lvls}
@@ -2809,6 +2841,735 @@ def phase_train(scenes):
     return launches_sum
 
 
+# ---------------------------------------------------------------------------
+# float32 grids: rows 1-3, 6 and 7 at conv_dtype=float32
+
+# the float32 kernels (exact float32 products, no TF32) against their plain
+# versions on the card (float32 matmuls, TF32 off): float32 sums in another
+# order, 1e-5 of each output's peak
+F32_REL_TOL = 1e-5
+# the float32 dense backbone against the float32 sparse one (cuBLAS
+# without TF32): float32 sums in another order through 47 convs and their
+# norms, 1e-4 of the float32 rows' peak
+F32_BACKBONE_TOL = 1e-4
+# the float32 rows: the wrappers whose float32 launches count apart
+F32_ROWS = ("tiled_conv3d", "tiled_conv3d_prefolded", "tiled_down2",
+            "tiled_up2", "tiled_up2_into")
+# one float32 pass of each path: the joint (47 convs, 4 downs, 4 ups) and
+# the nine categories (46 convs and the prefolded stem, 4 downs, 4 ups each)
+F32_JOINT = {"tiled_conv3d": 47, "tiled_conv3d_prefolded": 0,
+             "tiled_down2": 4, "tiled_up2": 4, "tiled_up2_into": 0}
+F32_SEPARATE = {"tiled_conv3d": 9 * 46, "tiled_conv3d_prefolded": 9,
+                "tiled_down2": 36, "tiled_up2": 36, "tiled_up2_into": 0}
+# the joint pass with up_impl="into": the ups into L1 and L0 write into
+# their skip's grid (row 7)
+F32_JOINT_INTO = {**F32_JOINT, "tiled_up2": 2, "tiled_up2_into": 2}
+
+
+# the CUDA kernels of each float32 row
+F32_KERNELS = {
+    "tiled_conv3d": "compact_kernel, conv_rows_f32_kernel, dead_rows_kernel<float>",
+    "tiled_conv3d_prefolded": "compact_kernel, conv_rows_f32_kernel (x taps)",
+    "tiled_down2": "compact_kernel, conv_rows_f32_kernel (down)",
+    "tiled_up2": "compact_kernel, up_rows_f32_kernel, skip_copy_kernel<float>",
+    "tiled_up2_into": "compact_kernel, up_rows_f32_kernel (into), "
+                      "up_dead_kernel<float>"}
+
+
+def read_f32():
+    return {n: counters()[n].launches_f32 for n in F32_ROWS}
+
+
+def reset_f32():
+    for n in F32_ROWS:
+        counters()[n].launches_f32 = 0
+
+
+def f32_unoccupied_zeros(name, got, a, kw):
+    """Exact zeros at the unoccupied listed cells of a call whose output
+    there is zero (no residual, or the into-conv's conv channels)."""
+    import canonicalvoting_tpu_torch.ops.tiled_conv as tc
+
+    if name == "tiled_conv3d" and kw.get("residual") is not None \
+            and kw.get("res_w") is None:
+        return None  # the plain residual is written there
+    if name in ("tiled_up2", "tiled_conv3d") and kw.get("occ") is None:
+        return None
+    flat = tc._flat(tc._row_cells(a[2], kw["tile_shape"]), got.shape)
+    unocc = kw["occ"].reshape(-1)[flat] == 0
+    c0 = kw.get("skip_c", 0) if name == "tiled_up2_into" else 0
+    c1 = got.shape[3] - (kw.get("skip_c", 0) if name == "tiled_up2" else 0)
+    return bool((got.reshape(-1, got.shape[3])[flat[unocc], c0:c1] == 0).all())
+
+
+def phase_f32(scenes):
+    """Float32 grids through rows 1-3, 6 and 7 (tpu.conv_dtype=float32):
+    every configuration of the float32 joint path (default and
+    up_impl="into") and the separate path's prefolded stem, recorded on
+    scene 0, against its plain version (F32_REL_TOL of each output's
+    peak), a repeat (bitwise) and exact zeros at its unoccupied listed
+    cells, timed as phase 1 times the bf16 rows; the unmasked checks at
+    float32; the float32 joint path (three scenes, default and
+    up_impl="into") and the separate evaluator (three scenes, nine
+    categories) with planted tails: exact float32 launch counts, no bf16
+    launch, per-stage ms (default routes), scenes/s and peak memory; the float32 dense backbone against the float32 sparse
+    one; eval_joint (three scans) and eval_separate (two) with
+    tpu.conv_dtype=float32 over the scenes written as a ScanNet tree:
+    exact float32 launch counts, no bf16 launch, a finite mAP. Returns
+    (summary by row, launches)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import canonicalvoting_tpu_torch.models.dense_unet as du
+    import canonicalvoting_tpu_torch.ops.tiled_conv as tc
+    from canonicalvoting_tpu_torch import eval_joint, eval_separate
+    from canonicalvoting_tpu_torch.data.synthetic_tree import write_scannet_tree
+
+    t_phase = time.perf_counter()
+    failures = []
+    plain = {"tiled_conv3d": tc.tiled_conv3d_plain,
+             "tiled_conv3d_prefolded": drop_wt(tc.tiled_conv3d_prefolded_plain),
+             "tiled_down2": drop_wt(tc.tiled_down2_plain),
+             "tiled_up2": tc.tiled_up2_plain,
+             "tiled_up2_into": tc.tiled_up2_into_plain}
+    kern = counters()
+    pipe = build_pipeline("float32")
+    sep = build_separate(compute_dtype="float32")
+    scene = scenes[0]
+    args = pipe.prepare_scene(scene.points, scene.rgb)
+    sep_args = sep.prepare_quantized(*quantize(scene))
+    records = {}
+    with patched(du, **{n: recorder(records, du, n) for n in
+                        ("tiled_conv3d", "tiled_down2", "tiled_up2")}):
+        pipe.run_backbone(args)
+    with variants(pipe), patched(
+            du, tiled_up2_into=recorder(records, du, "tiled_up2_into")):
+        pipe.run_backbone(args)
+    with patched(du, tiled_conv3d_prefolded=recorder(
+            records, du, "tiled_conv3d_prefolded")):
+        sep.backbones(sep_args)
+    occ_of = {tuple(r["kw"]["occ"].shape): r["kw"]["occ"]
+              for r in records.values() if r["name"] == "tiled_conv3d"}
+    levels = {shape: i for i, shape in enumerate(sorted(
+        occ_of, key=lambda sh: -sh[0] * sh[1] * sh[2]))}
+    summary = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                   "bound_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+                   "operations": 0.0, "host_ms": 0.0, "device_ms": 0.0,
+                   "fill_ms": 0.0 if n in FILLED else None}
+               for n in F32_ROWS}
+    for key, r in records.items():
+        name, a, kw = r["name"], r["args"], r["kw"]
+        assert a[0].dtype == torch.float32, (key, a[0].dtype)
+        got, again = kern[name](*a, **fresh(kw)), kern[name](*a, **fresh(kw))
+        want = plain[name](*a, **fresh(kw))
+        err, scale = (rel_err(into_conv_rows(got, a, kw), into_conv_rows(want, a, kw))
+                      if name == "tiled_up2_into" else rel_err(got, want))
+        extra = {"level": levels[tuple(kw["occ"].shape)],
+                 "bitwise_repeat": bool(torch.equal(got, again))}
+        zeros = f32_unoccupied_zeros(name, got, a, kw)
+        if zeros is not None:
+            extra["unoccupied_exact_zeros"] = zeros
+        if not (err <= F32_REL_TOL * scale and extra["bitwise_repeat"]
+                and zeros is not False):
+            failures.append((key, err, F32_REL_TOL * scale, extra))
+        del got, again, want
+        kw_k, kw_p = fresh(kw), fresh(kw)
+        ms = time_ms(lambda: kern[name](*a, **kw_k), 5)
+        extra["host_ms"] = host_ms(lambda: kern[name](*a, **kw_k), 5)
+        extra["device_ms"] = device_ms(lambda: kern[name](*a, **kw_k), 5,
+                                       extra["host_ms"])
+        plain_ms = time_ms(lambda: plain[name](*a, **kw_p), 2)
+        del kw_k, kw_p
+        fill_ms = time_ms(fill_call(r), 5) if name in FILLED else None
+        lib_ms = time_ms(library_call(r), 3)
+        (bound_ms, bound_by), work = (prefold_bound(r)
+                                      if name == "tiled_conv3d_prefolded"
+                                      else conv_bound(r, occ_of))
+        extra.update(work)
+        n, s = r["count"], summary[name]
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                     (bound_by, bound_ms), ("library_ms", lib_ms),
+                     ("host_ms", extra["host_ms"]),
+                     ("device_ms", extra["device_ms"])):
+            s[k] += v * n
+        if fill_ms is not None:
+            s["fill_ms"] += fill_ms * n
+        emit({"phase": "f32", "kernel": name, "config": [str(v) for v in key[1:]],
+              "per_scene": n, "max_abs_err": err, "ref_max": scale,
+              "tol": F32_REL_TOL * scale, "kernel_ms": ms, "fill_ms": fill_ms,
+              "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, **extra})
+    unmasked_checks(records, kern, plain, levels, failures,
+                    rel_tol=F32_REL_TOL, phase="f32")
+    records.clear()
+    occ_of.clear()
+    torch.cuda.empty_cache()
+    for s in summary.values():
+        s["bound_by"] = "bytes" if s.pop("bytes") >= s.pop("operations") \
+            else "operations"
+
+    # the paths at float32, planted tails
+    launches = {n: 0 for n in F32_ROWS}
+    paths = {}
+    for path, per in (("joint", F32_JOINT), ("joint_into", F32_JOINT_INTO),
+                      ("separate", F32_SEPARATE)):
+        if path.startswith("joint"):
+            prepped = [pipe.prepare_scene(s.points, s.rgb) for s in scenes]
+            planted = [planted_rows(s, p) for s, p in zip(scenes, prepped)]
+            up_impl = "into" if path == "joint_into" else "concat"
+
+            def run(p, r):
+                with variants(pipe, up_impl=up_impl, hv_method=pipe.hv_method):
+                    return run_planted(pipe, p, r)[1]["n_boxes"]
+        else:
+            prepped = [sep.prepare_quantized(*quantize(s)) for s in scenes]
+            planted = [separate_rows(s, p, len(sep.categories))
+                       for s, p in zip(scenes, prepped)]
+
+            def run(p, r):
+                return sep.run_scene(p, planted=r)["n_boxes"]
+        for p, r in zip(prepped, planted):  # warm-up
+            run(p, r)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        reset_f32()
+        t0 = time.perf_counter()
+        boxes = [run(p, r) for p, r in zip(prepped, planted)]
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        got, bf16 = read_f32(), read_counters()
+        stages = ([stage_times(pipe, s) for s in scenes] if path == "joint"
+                  else [separate_stage_times(sep, p, r)
+                        for p, r in zip(prepped, planted)]
+                  if path == "separate" else [{}])
+        paths[path] = {
+            "scenes": len(scenes), "scenes_per_s": len(scenes) / elapsed,
+            "n_boxes": [b.tolist() if b.dim() else int(b) for b in boxes],
+            "launches_f32": got,
+            "stage_ms": {k: float(np.median([s[k] for s in stages]))
+                         for k in stages[0]},
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        for k in F32_ROWS:
+            launches[k] += got[k]
+        if got != {k: v * len(scenes) for k, v in per.items()} or any(
+                bf16[k] for k in F32_ROWS):
+            failures.append((path, "launches", got, bf16))
+        if sum(int(np.sum(b.tolist())) for b in boxes) < len(scenes):
+            failures.append((path, "planted boxes lost", paths[path]["n_boxes"]))
+        del prepped, planted
+        torch.cuda.empty_cache()
+    emit({"phase": "f32", "paths": paths})
+
+    # the float32 dense backbone against the float32 sparse one
+    dargs, sargs, _ = sparse_prep(scene, pipe)
+    _, f32 = sparse_models(pipe.model, pipe.model.state_dict())
+    n = sargs.pyramid["nvalid"][0]
+    ref = f32(sargs.feats, sargs.pyramid)
+    peak = float(ref[:n].abs().max())
+    errs = backbone_errors(ref, pipe.run_backbone(dargs), n)
+    backbone = {**errs, "f32_peak": peak, "limit": F32_BACKBONE_TOL * peak,
+                "ms": {"dense_f32": time_ms(lambda: pipe.run_backbone(dargs), 3),
+                       "sparse_f32": time_ms(lambda: f32(sargs.feats,
+                                                         sargs.pyramid), 3)}}
+    emit({"phase": "f32", "check": "dense_vs_sparse_backbone", **backbone})
+    if errs["max_abs_err"] > F32_BACKBONE_TOL * peak:
+        failures.append(("dense f32 backbone against sparse f32", errs))
+    del dargs, sargs, f32, ref
+    torch.cuda.empty_cache()
+
+    # eval_joint (three scans) and eval_separate (two) with
+    # tpu.conv_dtype=float32 over a ScanNet tree
+    root = tempfile.mkdtemp(prefix="chip_smoke_f32_")
+    try:
+        ids = [f"scene{i:04d}_00" for i in range(len(scenes))]
+        overrides = write_scannet_tree(root, scenes, ids) + [
+            f"scannet_res={RES}", "tpu.conv_dtype=float32"]
+        split = os.path.join(root, "split_separate.txt")
+        with open(split, "w") as f:
+            f.write("\n".join(ids[:N_SEPARATE_SCENES]) + "\n")
+        for name, main, argv, per, n in (
+                ("eval_joint", eval_joint.main, overrides, F32_JOINT, len(ids)),
+                ("eval_separate", eval_separate.main,
+                 overrides + [f"data.val_split={split}"], F32_SEPARATE,
+                 N_SEPARATE_SCENES)):
+            torch.cuda.synchronize()
+            reset_counters()
+            reset_f32()
+            t0 = time.perf_counter()
+            results = main(argv)
+            cli_s = time.perf_counter() - t0
+            got, bf16 = read_f32(), read_counters()
+            cli = {"scenes": n, "seconds": cli_s, "launches_f32": got,
+                   "mAP": {str(t): float(d["mAP"]) for t, d in results.items()}}
+            emit({"phase": "f32", "cli": name, **cli})
+            for k in F32_ROWS:
+                launches[k] += got[k]
+            if got != {k: v * n for k, v in per.items()} or any(
+                    bf16[k] for k in F32_ROWS) or not all(
+                    np.isfinite(v) for v in cli["mAP"].values()):
+                failures.append((f"{name} at float32", cli, bf16))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del pipe, sep
+    torch.cuda.empty_cache()
+    emit({"phase": "f32", "total_s": time.perf_counter() - t_phase,
+          "failures": [str(f)[:400] for f in failures]})
+    assert not failures, failures
+    return summary, launches
+
+
+# ---------------------------------------------------------------------------
+# the dense training route, remat, the Hough backward
+
+# the dense step's gradients against the gather step's, float32, TF32 off:
+# the JAX package's tolerance and plan for that comparison
+# (tests/test_train.py:144-226); full width is printed beside the
+# gradient's own sensitivity to a 1e-6 perturbation of the weights
+DENSE_GRAD_ATOL, DENSE_GRAD_RTOL = 5e-4, 5e-3
+DENSE_PARITY_PLAN = dict(layers=(1,) * 8, planes=(8, 16, 32, 32, 32, 32, 16, 16),
+                         init_dim=8)
+# at full width the step's gradients, all tensors as one vector, within
+# this relative L2 of the gather step's: between the dense route's 2.3e-3
+# and the 1.25e-2 by which a 1e-6 weight perturbation moves the gather
+# step itself (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+DENSE_GRAD_FULL_L2 = 6e-3
+# the Hough backward on the card against its CPU route, of each
+# gradient's peak: float32 sums over the rotations in another order
+HOUGH_GRAD_TOL = 1e-4
+
+
+def dense_memory_reckoning(prepped_dims):
+    """The bytes one bf16 grid of the L0 level holds at 96 channels, and a
+    scene's saved activations without remat by the count of L0/L1 grids
+    the backward keeps (the printout's reckoning; PERF.md)."""
+    from canonicalvoting_tpu_torch.data.dense_prep import MX, MY, MZ
+
+    x, y, z = prepped_dims
+    cells = (x + 2 * MX) * (y + 2 * MY) * (z + 2 * MZ)
+    grid = cells * 96 * 2
+    # L0: stem output and its norm (32 ch), the up's output and norm (96),
+    # the concat (128), two blocks of four 96-channel grids; L1 an eighth
+    l0 = cells * 2 * (2 * 32 + 2 * 96 + 128 + 8 * 96)
+    return {"l0_cells": cells, "grid_96ch_gb": grid / 1e9,
+            "saved_per_scene_gb": l0 * (1 + 1 / 8 + 1 / 64) / 1e9}
+
+
+def loop_scene_items(n):
+    """n of the loops' 4 x 2 x 4 m synthetic scenes as (joint, separate)
+    items, and their ground truth."""
+    import numpy as np
+
+    from canonicalvoting_tpu_torch.data.geometry import IDX2NAME, NAME2CATNAME
+    from canonicalvoting_tpu_torch.data.synthetic import make_scene
+
+    rng = np.random.RandomState(11)
+    scenes = [make_scene(rng, extent=(4.0, 2.0, 4.0), n_background=15000,
+                         n_boxes=3, pts_per_box=2000) for _ in range(n)]
+    lj, ls = train_items(scenes)
+    gts = {it[0]: [(NAME2CATNAME[IDX2NAME[ci]], c) for ci, c in s.gt_corners()]
+           for it, s in zip(lj, scenes)}
+    return lj, ls, gts
+
+
+def phase_train_dense(scenes):
+    """The dense training route (tpu.train_backbone=dense) on the card:
+    float32 parity of the dense step's gradients with the gather step's
+    on the loops' scenes (TF32 off); the joint dense step at full width
+    (MinkUNet34C(3 -> 64), bf16, the three bench scenes, microbatch 1)
+    with and without remat: step ms, peak memory beside the reckoning,
+    five steps lowering the loss, every BN buffer moved and finite; one
+    separate dense step; one epoch of each loop with
+    tpu.conv_dtype=float32, validated on the float32 kernels. Returns the
+    loops' float32 launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from canonicalvoting_tpu_torch.config import load_config
+    from canonicalvoting_tpu_torch.data.collate import (
+        collate_joint, collate_joint_dense, collate_separate)
+    from canonicalvoting_tpu_torch.data.loader import ListDataset
+    from canonicalvoting_tpu_torch.models.minkunet import MinkUNet34C, MinkUNetBase
+    from canonicalvoting_tpu_torch.train import steps
+    from canonicalvoting_tpu_torch.train.joint_loop import run_joint_training
+    from canonicalvoting_tpu_torch.train.separate_loop import run_separate_training
+
+    t_phase = time.perf_counter()
+    failures = []
+    cfg = load_config(None, [])
+    lj, ls, gts = loop_scene_items(LOOP_SCENES + LOOP_VAL)
+
+    def joint_model(dtype, seed=0):
+        return MinkUNet34C(3, 64, compute_dtype=dtype,
+                           generator=torch.Generator().manual_seed(seed))
+
+    with torch.enable_grad():
+        # 1. parity, float32, one loop scene a step: the JAX package's own
+        # plan for this comparison at its tolerance; then full width within
+        # DENSE_GRAD_FULL_L2, beside the gradient's sensitivity (a 1e-6
+        # relative weight perturbation)
+        items = lj[:1]
+        grads = {}
+        for run, plan, backbone, perturb in (
+                ("plan_gather", DENSE_PARITY_PLAN, "gather", 0.0),
+                ("plan_dense", DENSE_PARITY_PLAN, "dense", 0.0),
+                ("full_gather", {}, "gather", 0.0),
+                ("full_dense", {}, "dense", 0.0),
+                ("full_gather_perturbed", {}, "gather", 1e-6)):
+            model = (MinkUNetBase(3, 64, compute_dtype="float32",
+                                  generator=torch.Generator().manual_seed(0),
+                                  **plan) if plan else joint_model("float32"))
+            if perturb:
+                g = torch.Generator().manual_seed(3)
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.mul_(1 + perturb * torch.randn(p.shape, generator=g))
+            state = (steps.create_train_state_dense(model, 0.0, DEVICE)
+                     if backbone == "dense"
+                     else steps.create_train_state(model, 0.0, DEVICE))
+            batch = (collate_joint_dense if backbone == "dense"
+                     else collate_joint)(items, cap_multiple=4096)
+            step = steps.make_joint_train_step(state.model, cfg, backbone=backbone)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                _, losses = step(state, batch, 0.0, 0.5)
+            grads[run] = ({n: p.grad.clone() for n, p in
+                           state.model.named_parameters()},
+                          float(losses["loss"]))
+            del state, step, model
+            torch.cuda.empty_cache()
+
+        def compare(ref, got):
+            (gg, lg), (gd, ld) = grads[ref], grads[got]
+            worst, n_bad = ("", 0.0), 0
+            for name, want in gg.items():
+                d = (gd[name] - want).abs()
+                n_bad += int((d > DENSE_GRAD_ATOL
+                              + DENSE_GRAD_RTOL * want.abs()).sum())
+                rel = float(d.max()) / max(float(want.abs().max()), 1e-30)
+                worst = max(worst, (name, rel), key=lambda t: t[1])
+            a = torch.cat([gd[n].flatten() for n in gg])
+            b = torch.cat([gg[n].flatten() for n in gg])
+            return {"loss": [lg, ld], "loss_rel_err": abs(ld - lg) / abs(lg),
+                    "elements": int(b.numel()), "elements_outside_tol": n_bad,
+                    "worst_tensor": {"name": worst[0], "peak_rel_err": worst[1]},
+                    "global_rel_l2": float((a - b).norm() / b.norm())}
+
+        parity = {"plan": compare("plan_gather", "plan_dense"),
+                  "full_width": compare("full_gather", "full_dense"),
+                  "full_width_sensitivity": compare("full_gather",
+                                                    "full_gather_perturbed"),
+                  "tol": [DENSE_GRAD_ATOL, DENSE_GRAD_RTOL],
+                  "full_width_l2_limit": DENSE_GRAD_FULL_L2,
+                  "plan_planes": DENSE_PARITY_PLAN["planes"],
+                  "voxels": int(len(items[0][1]))}
+        emit({"phase": "train_dense", "check": "grads_vs_gather_f32", **parity})
+        if parity["plan"]["elements_outside_tol"] or \
+                parity["plan"]["loss_rel_err"] > 1e-4:
+            failures.append(("dense grads against gather", parity["plan"]))
+        if parity["full_width"]["global_rel_l2"] > DENSE_GRAD_FULL_L2 or \
+                parity["full_width"]["loss_rel_err"] > 1e-4:
+            failures.append(("dense grads against gather at full width",
+                             parity["full_width"]))
+        del grads
+
+        # 2. full width, bf16, the three bench scenes, microbatch 1
+        joint_items, sep_items = train_items(scenes)
+        batch, t_c = sync_ms(lambda: collate_joint_dense(
+            joint_items, cap_multiple=4096, microbatch=1))
+        dims = batch["meta"]["grid_dims"]
+        reckon = dense_memory_reckoning(dims)
+        full = {}
+        for remat in (False, True):
+            base = allocated_gib()
+            state = steps.create_train_state_dense(joint_model("bfloat16"), 0.0,
+                                                   DEVICE, remat=remat)
+            step = steps.make_joint_train_step(state.model, cfg, backbone="dense")
+            losses, ms, peak = train_step_run(step, state, batch, reps=2)
+            full[f"remat_{remat}"] = {"step_ms": ms, "peak_gib": peak,
+                                      "peak_above_base_gib": peak - base,
+                                      "losses": losses}
+            if not remat:  # five more steps lower the loss
+                before = {n: b.clone() for n, b in state.model.named_buffers()}
+                curve = [losses["loss"]] + [
+                    float(step(state, batch, 1e-3, 0.5)[1]["loss"])
+                    for _ in range(TRAIN_DESCENT)]
+                moved = sum(not torch.equal(b, before[n])
+                            for n, b in state.model.named_buffers())
+                finite = all(bool(torch.isfinite(b).all())
+                             for b in state.model.buffers())
+                full["descent"] = {"losses": curve, "bn_buffers_moved": moved,
+                                   "bn_buffers": len(before), "finite": finite}
+                if not (curve[-1] < curve[0] and moved == len(before)
+                        and finite and all(np.isfinite(curve))):
+                    failures.append(("dense loss did not fall", full["descent"]))
+            del state, step
+            torch.cuda.empty_cache()
+        emit({"phase": "train_dense", "step": "joint", "scenes": len(joint_items),
+              "microbatch": 1, "grid_dims": list(dims), "collate_ms": t_c,
+              "reckoning": reckon, **full})
+        del batch
+
+        # 3. one separate dense step (MinkUNet34C(3, 8))
+        sbatch = collate_separate(sep_items, cap_multiple=4096,
+                                  max_objects=cfg.tpu.max_objects, dense=True,
+                                  microbatch=1)
+        base = allocated_gib()
+        state = steps.create_train_state_dense(
+            MinkUNet34C(3, 8, generator=torch.Generator().manual_seed(1)), 0.0,
+            DEVICE)
+        sstep = steps.make_separate_train_step(state.model, cfg,
+                                               cfg.tpu.max_objects,
+                                               backbone="dense")
+        losses, ms, peak = train_step_run(sstep, state, sbatch, reps=1)
+        emit({"phase": "train_dense", "step": "separate", "step_ms": ms,
+              "peak_gib": peak, "peak_above_base_gib": peak - base,
+              "losses": losses})
+        if not all(np.isfinite(list(losses.values()))):
+            failures.append(("separate dense losses", losses))
+        del state, sstep, sbatch
+        torch.cuda.empty_cache()
+
+    # 4. one epoch of each loop, dense and float32, validated on the
+    # float32 kernels
+    loops_cfg = load_config(None, ["batch_size=3", "num_workers=0",
+                                   "category=03001627",
+                                   "tpu.train_backbone=dense",
+                                   "tpu.conv_dtype=float32"])
+    launches = {n: 0 for n in F32_ROWS}
+    for name, run, items, per in (
+            ("joint", run_joint_training, lj, F32_JOINT),
+            ("separate", run_separate_training, ls,
+             {k: v // 9 for k, v in F32_SEPARATE.items()})):
+        with tempfile.TemporaryDirectory() as workdir:
+            reset_f32()
+            t0 = time.perf_counter()
+            state, ret = run(loops_cfg, ListDataset(items[:LOOP_SCENES]),
+                             ListDataset(items[LOOP_SCENES:]), workdir=workdir,
+                             gt_lookup=gts.get, eval_every=1, max_epoch=0,
+                             device=DEVICE)
+            got = read_f32()
+            ok = (type(state.model).__name__ == "DenseMinkUNet"
+                  and state.model.compute_dtype == "float32"
+                  and state.step == LOOP_SCENES // loops_cfg.batch_size
+                  and got == {k: v * LOOP_VAL for k, v in per.items()}
+                  and ret is not None and all(np.isfinite(ret[t]["mAP"])
+                                              for t in (0.25, 0.5)))
+            emit({"phase": "train_dense", "loop": name,
+                  "seconds": time.perf_counter() - t0, "epochs": state.history,
+                  "launches_f32": got, "ok": ok,
+                  "map": None if ret is None else {
+                      str(t): ret[t]["mAP"] for t in (0.25, 0.5)}})
+            if not ok:
+                failures.append((name, "dense loop", got, state.step))
+            for k in F32_ROWS:
+                launches[k] += got[k]
+            del state
+            torch.cuda.empty_cache()
+    emit({"phase": "train_dense", "total_s": time.perf_counter() - t_phase,
+          "failures": [str(f)[:400] for f in failures]})
+    assert not failures, failures
+    return launches
+
+
+def phase_train_remat(scenes):
+    """Block remat on the gather step at full width (MinkUNet34C(3 -> 64),
+    bf16): step ms and peak memory with and without it on the three bench
+    scenes as one batch (the default mode: the card's index_add_ sums in
+    no fixed order, so the two differ by that order); then, with the
+    deterministic algorithms on (index_add_ in a fixed order, ~50x slower)
+    on scene 0, the step with remat equals the step without it bit for bit
+    (loss, gradients, running statistics). Each running statistic is
+    updated once a step (two in-place ops a buffer). Then one epoch of
+    each loop with tpu.train_remat=true: every block of every step
+    recomputed once, a checkpoint, the validation on the dense kernels
+    and a finite mAP. Returns the loops' kernel launches."""
+    import tempfile
+
+    import torch
+
+    import canonicalvoting_tpu_torch.models.norm as norm
+    from canonicalvoting_tpu_torch.config import load_config
+    from canonicalvoting_tpu_torch.data.collate import collate_joint
+    from canonicalvoting_tpu_torch.data.loader import ListDataset
+    from canonicalvoting_tpu_torch.models.minkunet import MinkUNet34C, MinkUNetBase
+    from canonicalvoting_tpu_torch.train import steps
+    from canonicalvoting_tpu_torch.train.joint_loop import run_joint_training
+    from canonicalvoting_tpu_torch.train.separate_loop import run_separate_training
+
+    t_phase = time.perf_counter()
+    cfg = load_config(None, [])
+    joint_items, _ = train_items(scenes)
+
+    def one_step(remat, batch, again=True):
+        model = MinkUNet34C(3, 64, generator=torch.Generator().manual_seed(0))
+        state = steps.create_train_state(model, 0.0, DEVICE, remat=remat)
+        step = steps.make_joint_train_step(state.model, cfg)
+        versions = {n: b._version for n, b in state.model.named_buffers()}
+        torch.cuda.synchronize()
+        base = allocated_gib()
+        torch.cuda.reset_peak_memory_stats()
+        (_, losses), ms = sync_ms(lambda: step(state, batch, 0.0, 0.5))
+        out = {"loss": losses["loss"].clone(), "step_ms": ms,
+               "peak_above_base_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+               - base,
+               "grads": {n: p.grad.clone() for n, p in state.model.named_parameters()},
+               "stats": {n: b.clone() for n, b in state.model.named_buffers()},
+               "bumps": {n: b._version - versions[n]
+                         for n, b in state.model.named_buffers()}}
+        if again:  # a second step, the allocator warm
+            out["timed_ms"] = sync_ms(lambda: step(state, batch, 0.0, 0.5))[1]
+        del state, step, model
+        torch.cuda.empty_cache()
+        return out
+
+    with torch.enable_grad():
+        batch = collate_joint(joint_items, cap_multiple=4096)
+        timed = {r: one_step(r, batch) for r in (False, True)}
+        batch = collate_joint(joint_items[:1], cap_multiple=4096)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det = {r: one_step(r, batch, again=False) for r in (False, True)}
+        finally:
+            torch.use_deterministic_algorithms(False)
+    a, b = det[False], det[True]
+    equal = {"loss": bool(torch.equal(a["loss"], b["loss"])),
+             "grads": all(torch.equal(a["grads"][n], g)
+                          for n, g in b["grads"].items()),
+             "stats": all(torch.equal(a["stats"][n], v)
+                          for n, v in b["stats"].items())}
+    once = all(set(r["bumps"].values()) == {2}
+               for r in (a, b, timed[False], timed[True]))
+    # in the default mode the two steps differ by index_add_'s order
+    d_worst = max((float((timed[True]["grads"][n] - g).abs().max())
+                   / max(float(g.abs().max()), 1e-30), n)
+                  for n, g in timed[False]["grads"].items())
+    out = {"deterministic_bitwise_equal": equal, "stats_updated_once": once,
+           "default_mode_grad_worst_peak_rel": d_worst[0],
+           "default_mode_grad_worst_tensor": d_worst[1],
+           "step_ms": {"plain": timed[False]["timed_ms"],
+                       "remat": timed[True]["timed_ms"],
+                       "plain_deterministic_scene0": a["step_ms"],
+                       "remat_deterministic_scene0": b["step_ms"]},
+           "peak_above_base_gib": {"plain": timed[False]["peak_above_base_gib"],
+                                   "remat": timed[True]["peak_above_base_gib"]},
+           "total_s": time.perf_counter() - t_phase}
+    emit({"phase": "train_remat", **out})
+    assert all(equal.values()) and once, out
+
+    # one epoch of each loop with remat, validated on the dense kernels
+    lj, ls, gts = loop_scene_items(LOOP_SCENES + LOOP_VAL)
+    loops_cfg = load_config(None, ["batch_size=3", "num_workers=0",
+                                   "category=03001627", "tpu.train_remat=true"])
+    frozen, recomputed = norm.frozen_running_stats, []
+
+    @contextlib.contextmanager
+    def counted():  # entered when the backward recomputes a block
+        recomputed.append(1)
+        with frozen():
+            yield
+
+    launches_sum, failures = {n: 0 for n in SOURCES}, []
+    for name, run, items, per in (
+            ("joint", run_joint_training, lj, VAL_JOINT),
+            ("separate", run_separate_training, ls, VAL_SEPARATE)):
+        with tempfile.TemporaryDirectory() as workdir, \
+                patched(norm, frozen_running_stats=counted):
+            del recomputed[:]
+            reset_counters()
+            t0 = time.perf_counter()
+            state, ret = run(loops_cfg, ListDataset(items[:LOOP_SCENES]),
+                             ListDataset(items[LOOP_SCENES:]), workdir=workdir,
+                             gt_lookup=gts.get, eval_every=1, max_epoch=0,
+                             device=DEVICE)
+            launches = read_counters()
+            checks = loop_checks(name, state, ret, launches, per, LOOP_VAL, 1,
+                                 workdir, (0,))
+            model = state.model
+            blocks = sum(model.layers) * state.step
+            loop = {"seconds": time.perf_counter() - t0, "epochs": state.history,
+                    "steps": state.step, "blocks_recomputed": len(recomputed),
+                    "blocks_expected": blocks, "launches": launches,
+                    "checks": checks,
+                    "map": {str(t): ret[t]["mAP"] for t in (0.25, 0.5)}}
+            emit({"phase": "train_remat", "loop": name, **loop})
+            if not (type(model) is MinkUNetBase and model.remat
+                    and state.step == LOOP_SCENES // loops_cfg.batch_size
+                    and len(recomputed) == blocks):
+                failures.append((name, "remat loop", loop))
+            for n in SOURCES:
+                launches_sum[n] += launches[n]
+            del state, model
+            torch.cuda.empty_cache()
+    emit({"phase": "train_remat", "loops_total_s": time.perf_counter() - t_phase,
+          "failures": [str(f)[:400] for f in failures]})
+    assert not failures, failures
+    return launches_sum
+
+
+def phase_hough_backward(pipe, scenes):
+    """The Hough-voting backward (hough_backward_obj) at the joint scene's
+    configuration: 61,440 rows, 120 rotations, scene 0's vote grid, its
+    planted head rows and a random cotangent; the card's gradients against
+    the CPU route's within HOUGH_GRAD_TOL of each gradient's peak, the
+    call timed, and no host sync inside; through the autograd Function
+    too."""
+    import torch
+
+    from canonicalvoting_tpu_torch.eval.pipeline import slice_joint_heads
+    from canonicalvoting_tpu_torch.ops.hough_voting import (
+        clipped_grid_dims, compute_corners, hough_backward_obj, hough_voting)
+
+    scene = scenes[0]
+    args = pipe.prepare_scene(scene.points, scene.rgb)
+    xyz, scale, _, prob = slice_joint_heads(planted_rows(scene, args))
+    scale = torch.exp(scale)
+    corners = compute_corners(args.coords_w, args.valid)
+    dims = clipped_grid_dims(corners, RES, args.grid_shape)
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    g_obj = torch.rand(args.grid_shape, generator=g, device=DEVICE) * 2 - 1
+    inputs = (args.coords_w, xyz, scale, prob, corners[0], dims)
+
+    def call(dev):
+        t = [x.to(dev) for x in inputs]
+        return hough_backward_obj(*t, RES, NUM_ROTS, args.grid_shape,
+                                  g_obj.to(dev), args.valid.to(dev))
+
+    card, cpu = call(DEVICE), call("cpu")
+    errs = {}
+    for name, a, b in zip(("d_xyz", "d_scale", "d_obj"), card, cpu):
+        peak = float(b.abs().max())
+        errs[name] = {"max_abs_err": float((a.cpu() - b).abs().max()),
+                      "peak": peak, "tol": HOUGH_GRAD_TOL * peak}
+    free, why = sync_free(lambda: call(DEVICE))
+    ms = time_ms(lambda: call(DEVICE), 5)
+    # the Function: grid_obj's cotangent, the others discarded
+    x, s, o = (t.detach().clone().requires_grad_() for t in (xyz, scale, prob))
+    with torch.enable_grad():
+        go, gr, gs = hough_voting(args.coords_w, x, s, o, res=RES,
+                                  num_rots=NUM_ROTS, grid_shape=args.grid_shape,
+                                  corners=corners, valid=args.valid)
+        ((go * g_obj).sum() + gr.sum() + gs.sum()).backward()
+    function_equal = all(torch.equal(a, b) for a, b in
+                         zip((x.grad, s.grad, o.grad), card))
+    out = {"rows": int(args.coords_w.shape[0]), "valid_rows": int(args.valid.sum()),
+           "rotations": NUM_ROTS, "grid_shape": list(args.grid_shape),
+           "errors": errs, "sync_free": free, "sync_error": why, "ms": ms,
+           "function_equal": function_equal}
+    emit({"phase": "hough_backward", **out})
+    assert all(e["max_abs_err"] <= e["tol"] and e["peak"] > 0
+               for e in errs.values()), errs
+    assert free, why
+    assert function_equal, "the Function's gradients differ from the call's"
+
+
 def main() -> int:
     try:
         import torch
@@ -2847,7 +3608,11 @@ def main() -> int:
               ("scannet", lambda: phase_scannet(pipe, sep(), scenes, smi)),
               ("sparse", lambda: phase_sparse(pipe, sep(), scenes)),
               ("sunrgbd", phase_sunrgbd),
-              ("train", lambda: phase_train(scenes)))
+              ("f32", lambda: phase_f32(scenes)),
+              ("train", lambda: phase_train(scenes)),
+              ("train_dense", lambda: phase_train_dense(scenes)),
+              ("train_remat", lambda: phase_train_remat(scenes)),
+              ("hough_backward", lambda: phase_hough_backward(pipe, scenes)))
     for name, run in phases:
         try:
             done[name] = run()
@@ -2860,12 +3625,14 @@ def main() -> int:
     # launches: the sum over the runs of the paths (phase 2, the separate
     # phase, the non-lazy phase, the variants phase, the two CLIs of the
     # scannet phase, the sparse phase's joint and separate passes, the
-    # sampler's batch, the training loops' validations), each counted from
-    # 0; the fused block, which no path runs, counts phase 1's checks
+    # sampler's batch, the training loops' validations, with and without
+    # remat), each counted from 0; the fused block, which no path runs,
+    # counts phase 1's checks
     summary = done["phase1"]
     launches = {n: done["phase2"][0][n] + done["separate"][n]
                 + done["nonlazy"][n] + done["variants"][n] + done["scannet"][n]
                 + done["sparse"][n] + done["sunrgbd"][0][n] + done["train"][n]
+                + done["train_remat"][n]
                 for n in SOURCES}
     # row 5's largest error includes the sampler's configuration
     summary["hv_splat6"]["max_abs_err"] = max(
@@ -2891,6 +3658,21 @@ def main() -> int:
                 "runs the fused block")
             kernels[-1].update({k: s[k] for k in (
                 "two_conv_ms", "two_conv_device_ms", "two_conv_host_ms")})
+    # the float32 rows: phase f32's checks and times; launches from the
+    # float32 paths (the f32 phase's joint and separate passes and its CLI
+    # run, the dense loops' validations)
+    f32_summary, f32_launches = done["f32"]
+    for name in F32_ROWS:
+        s = f32_summary[name]
+        source, replaces, cuda_kernels = SOURCES[name]
+        kernels.append({
+            "name": f"{name}_f32", "route": "cuda", "source": source,
+            "replaces": f"{replaces} (float32 grids)",
+            "cuda_kernels": F32_KERNELS[name],
+            "launches": f32_launches[name] + done["train_dense"][name],
+            **{k: s[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "fill_ms",
+                                 "host_ms", "device_ms")}})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,8 @@ validation (detection and mAP at both thresholds), checkpoints and the
 auto-resume, a JAX checkpoint resumed by the port's loop, the loop's first
 step equal to the step function's on the same batch, the CLIs over
 synthetic scenes and over a ScanNet-format tree (the datasets' training
-branch, augmentation on), and the routes that are not ported raising."""
+branch, augmentation on), the dense training route and block remat through
+both loops, and mesh training, which is not ported, raising."""
 
 import math
 import os
@@ -28,6 +29,7 @@ from canonicalvoting_tpu_torch.data.loader import ListDataset
 from canonicalvoting_tpu_torch.data.synthetic import make_scene
 from canonicalvoting_tpu_torch.data.synthetic_tree import (
     wnid_of, write_scannet_tree)
+from canonicalvoting_tpu_torch.models.dense_unet import DenseMinkUNet
 from canonicalvoting_tpu_torch.models.minkunet import MinkUNetBase
 from canonicalvoting_tpu_torch.ops.voxelize import sparse_quantize
 from canonicalvoting_tpu_torch.train import steps as tsteps
@@ -163,9 +165,7 @@ def test_separate_loop_validates_one_category(tmp_path):
     _finite_map(ret)
 
 
-@pytest.mark.parametrize("route,override", [
-    ("mesh", "tpu.mesh_data=2"), ("dense", "tpu.train_backbone=dense"),
-    ("remat", "tpu.train_remat=true")])
+@pytest.mark.parametrize("route,override", [("mesh", "tpu.mesh_data=2")])
 def test_routes_not_ported_raise(tmp_path, route, override):
     cfg = load_config(None, BASE + [override])
     for run in (joint_loop.run_joint_training,
@@ -173,6 +173,46 @@ def test_routes_not_ported_raise(tmp_path, route, override):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             run(cfg, ListDataset([]), ListDataset([]), workdir=str(tmp_path),
                 model=_narrow(3, 8), device="cpu")
+
+
+@pytest.mark.parametrize("route,overrides", [
+    ("dense", ["tpu.train_backbone=dense", "tpu.conv_dtype=float32"]),
+    ("remat", ["tpu.train_remat=true"])])
+def test_dense_and_remat_routes_train_both_loops(tmp_path, joint_data, route,
+                                                 overrides):
+    """The dense training route (as the JAX package's wiring test runs it,
+    tests/test_train.py:331: float32) and block remat through both loops:
+    an epoch, a checkpoint, a validation with a finite mAP, and a second
+    call that resumes and trains the next epoch."""
+    items, gts = joint_data
+    sep_items = separate_items(np.random.RandomState(0), n=2)
+    runs = (
+        (joint_loop.run_joint_training, items, gts.get, JOINT_OUT, []),
+        (separate_loop.run_separate_training, sep_items, _gts(2, "s").get, 8,
+         ["category=03001627"]))
+    for run, data, gt_lookup, out_ch, extra in runs:
+        workdir = str(tmp_path / str(out_ch))
+        models = []
+        for max_epoch in (0, 1):
+            cfg = load_config(None, BASE + overrides + extra
+                              + [f"max_epoch={max_epoch}"])
+            model = _narrow(3, out_ch, cfg.tpu.conv_dtype,
+                            torch.Generator().manual_seed(5))
+            state, ret = run(cfg, ListDataset(data), ListDataset(data[:1]),
+                             workdir=workdir, gt_lookup=gt_lookup,
+                             eval_every=1, cap_multiple=256, model=model,
+                             device="cpu")
+            assert state.step == max_epoch + 1
+            assert f"epoch{max_epoch}.ckpt" in os.listdir(workdir)
+            _finite_map(ret)
+            models.append(state.model)
+        # the route's model: the dense twin, or the gather model with remat
+        want = DenseMinkUNet if route == "dense" else MinkUNetBase
+        assert all(type(m) is want for m in models)
+        assert route == "dense" or models[1].remat
+        moved = [k for k, v in models[1].state_dict().items()
+                 if not torch.equal(v, models[0].state_dict()[k])]
+        assert moved  # the resumed call trained on
 
 
 def test_dense_sites_key_is_parsed_and_the_gather_form_runs():
