@@ -12,8 +12,8 @@
 // affine and mask), ReLU. Duplicate tiles (lists are padded by repeating the
 // last tile) recompute and store the same values; nothing accumulates into
 // the output. The grids are bfloat16 (the tensor-core kernels below) or
-// float32 (the FFMA kernels at the end of the file: rows 1-3, 6 and 7; the
-// fused block takes bfloat16 only), the model's compute dtype.
+// float32 (the FFMA kernels at the end of the file), the model's compute
+// dtype.
 //
 // tiled_conv3d, its prefolded stem, tiled_down2, tiled_up2, tiled_up2_into
 // and tiled_block3d: occupied-row GEMMs (conv_rows_kernel, up_rows_kernel).
@@ -1119,24 +1119,76 @@ cudaError_t launch_up(UpRows p, int n_par, int* rows, int want_dead, cudaStream_
 }
 
 // ---------------------------------------------------------------------------
-// float32 grids (tiled_conv3d, its prefolded stem, tiled_down2, tiled_up2
-// and tiled_up2_into at conv_dtype=float32): the same occupied-row GEMMs
-// over the same compacted live rows (compact_kernel), with exact float32
-// products and float32 sums on the FFMA units. The reference is the JAX
-// kernel at float32; TF32 (the tensor cores' float32 input) would round
-// each product's operands to 10 mantissa bits, a different result. A
-// block of 256 threads owns 64 live rows and 64 output columns, each
-// thread 4 rows (16 apart) by 4 columns (16 apart) in registers; a K step
-// is 16 channels of one tap: the rows' 64 x 16 operand (gathered through
-// the rows' cells, 16-byte loads where cin allows) and the weights' 16 x
-// 64 slice are staged in shared memory, k-major, and the next step's
-// global loads are issued into registers before this step's FMAs. The
-// epilogue is row 1's, in its order (affine, mask, residual or the fused
-// 1x1's masked affine result, ReLU); the rows are never split over K, so
-// each output is one thread's sum in tap, then channel order, and a
-// repeat is bitwise equal.
+// float32 grids (tiled_conv3d, its prefolded stem, tiled_down2, tiled_up2,
+// tiled_up2_into and tiled_block3d at conv_dtype=float32): the JAX
+// kernels of the header at float32, over the same compacted live rows
+// (compact_kernel), with exact float32 products and float32 sums on the
+// FFMA units. TF32 (the tensor cores' float32 input) would round each
+// product's operands to 10 mantissa bits, a different result.
+//
+// What bounds them on the H100: the convs at L0-L4 the MACs, which the
+// FFMA units run at 67 TF/s (the 27 taps of every live row: a tap whose
+// neighbour is empty multiplies the zeros it gathers); the prefolded stem
+// and the down the listed cells' bytes. conv_rows_f32_kernel is a SIMT
+// GEMM laid out for that:
+// - A block owns 128 live rows by 128 output columns (64 or 96 where
+//   cout fits), 8 x 8 accumulators a thread (8 x 6 at 96 columns) at rows
+//   tm + 16 i, columns tn + 16 j (tn + 8 j at 64 columns); a warp's lanes
+//   cover 4 tm by 8 tn. Both operands are staged row-major (a live row's
+//   or a weight row's 16 channels of a K step) at a pitch of 20 floats: a
+//   thread reads its 8 rows and its 8 columns as float4s over 4 channels,
+//   256 FMAs for sixteen 16-byte shared loads (the 64 x 64 tile before it:
+//   16 FMAs for eight 4-byte loads), and a warp's 4 row and 8 column reads
+//   each fall in distinct banks. Each product is a float32 fmaf; a thread
+//   sums its outputs in tap, then channel order. On the H100 the loop runs
+//   at roughly 40% of the FFMA rate, loads or not (PERF.md).
+// - A K step is 16 channels of one tap (taps x ceil(cin / 16) steps; the
+//   K-major weights' zero rows past cin are never read). The gathered
+//   operand (each live row's 16-byte channel chunk at cell + tap offset,
+//   4-byte copies where cin is not a multiple of 4) and the weight slice
+//   arrive by cp.async into a 4-stage ring in dynamic shared memory, one
+//   __syncthreads a stage; rows past the live count and channels past cin
+//   are zero-filled by the copy's source size 0.
+// - Work items (row block, column block, K split) run one a block over a
+//   1-D grid, so the busy blocks spread over the SMs. When the live row
+//   blocks times the column blocks fill less than one round of the card's
+//   resident blocks (L2-L4), K splits over taps into a float32 scratch
+//   (f32_k_splits, from the live count on the card, at most the wrapper's
+//   s_max), and split_reduce_f32_kernel adds the splits in split order and
+//   runs the epilogue, so a repeat is bitwise equal.
+// - The epilogue is row 1's, in its order: affine, mask, residual (plain,
+//   or the fused 1x1's masked affine result), ReLU. The fused 1x1 runs
+//   first, a k = 1 phase over the residual grid, and parks its result in
+//   the scratch (its slice after the splits) at the row's place in the
+//   list, which the epilogue or the reduction reads back.
+// The fused block (tiled_block3d_f32_launch) runs it twice over one
+// compaction as the bfloat16 block does: conv1 into a compact mid, conv2
+// gathering through the row map, both with the splits the model's two
+// convs take, so its output equals theirs bit for bit. The ups (rows 3f,
+// 7f) keep the 64 x 64 tile of up_rows_f32_kernel below.
 
-constexpr int FM = 64, FN = 64, FK = 16, FT = 256;
+constexpr int FBM = 128;        // live rows a block
+constexpr int FBK = 16;         // channels a K step
+constexpr int FLD = FBK + 4;    // pitch of a staged row, floats
+constexpr int FSTAGES = 4;      // cp.async ring depth
+
+template <int BN>
+struct F32Tile {
+  static constexpr int TJ = BN == 96 ? 6 : 8;     // columns a thread
+  static constexpr int TNC = BN / TJ;             // thread columns: tn + TNC * j
+  static constexpr int THREADS = 16 * TNC;        // 16 thread rows: tm + 16 * i
+  static constexpr int WN = TNC / 8;              // warps across the columns
+  static constexpr int MIN_BLOCKS = BN > 64 ? 2 : 3;
+  static constexpr int STAGE = (FBM + BN) * FLD;  // floats of a ring stage
+  static constexpr int SMEM = FSTAGES * STAGE * 4;
+};
+
+// 4 bytes global -> shared, zero-filled when !full (src is then not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
 
 struct ConvF32 {
   const float* x;
@@ -1155,106 +1207,204 @@ struct ConvF32 {
   const float* rwt;  // (cout, crpad): the fused 1x1, or null
   const float* rscale;
   const float* rbias;
-  int relu, vec_a, vec_r;
+  int relu, vec_a, vec_r, vec_o;
   float* out;
+  float* part;     // (s_max [+ 1 for the fused 1x1], n_list, cout) split-K sums;
+                   // with one split, (n_list, cout): the fused 1x1's result
+  int s_max;       // most K splits part holds (1: none)
+  int n_list;      // listed rows, part's row count
+  int target;      // work items of one round of the card's resident blocks
+  int by_row;      // the fused block's conv1: live row i's output at out + i * cout
+  const int* map;  // the fused block's conv2 (MAP): the row map over g; x is the mid
 };
 
-// one K phase of FFMA: acc (4 x 4 a thread) += the rows' gathered operand
-// (taps x cpad channels of src at cells + tap offset) x wt (cout, taps,
-// cpad); taps at offsets from the row's cell as TapLoader walks them
-struct F32Phase {
-  const float* src;
-  int cin, cpad, k, xonly, down, vec;
-  Grid g;
+// the K step a ring loads next: its tap (x-fastest offsets dx, dy, dz),
+// first channel and the tap's cell offset
+struct F32Step {
+  int tap, c0, dx, dy, dz, off;
+};
+
+// K steps of one phase into ring stages: A, the rows' 16 channels from c0
+// of the step's tap at their gathered source (x's taps from the row's cell
+// as TapLoader walks them, or with nbr the mid's row through the row map);
+// B, weight rows n0 .. n0 + BN of wt (cout, taps, cpad) at (tap, c0). The
+// steps load in order, so an F32Step advances one a load, without the
+// divisions of step_at.
+struct F32Taps {
+  const float* x;
+  int cin, k, xonly, down, vec;
+  Grid g;  // x's grid
   const float* wt;
-  int cout, n0;
-  const int* cell;  // shared: the rows' tap-base cells, -1 past the live rows
+  int cpad, cout, n0;
+  const int* cell;  // shared: the rows' tap-base cells in g, -1 past the live rows
+  const int* nbr;   // shared (MAP_TAPS, FBM): positions in the mid, -1 for none; or null
 
-  __device__ __forceinline__ int taps() const { return xonly ? k : k * k * k; }
+  __device__ __forceinline__ int taps() const {
+    return nbr != nullptr ? MAP_TAPS : xonly ? k : k * k * k;
+  }
+  __device__ __forceinline__ int chunks() const { return (cin + FBK - 1) / FBK; }
+  __device__ __forceinline__ int steps() const { return taps() * chunks(); }
 
-  // this thread's 4 operand values (row m = tid / 4, channels 4 (tid % 4) ..)
-  // and 4 weight values (column n = tid / 4, the same channels) of step s
-  __device__ __forceinline__ void load(int s, float (&a)[4], float (&b)[4]) const {
-    const int nkc = cpad / FK, h = down ? 0 : k / 2;
-    const int tap = s / nkc, c0 = (s - tap * nkc) * FK + (threadIdx.x & 3) * 4;
-    const int dx = xonly ? tap : tap % k;
-    const int dy = xonly ? h : (tap / k) % k, dz = xonly ? h : tap / (k * k);
-    const int off = ((dx - h) * g.ym + (dy - h)) * g.zm + (dz - h);
-    const int m = threadIdx.x >> 2, cl = cell[m];
-    if (vec) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (cl >= 0 && c0 < cin) v = *reinterpret_cast<const float4*>(src + (long long)(cl + off) * cin + c0);
-      a[0] = v.x;
-      a[1] = v.y;
-      a[2] = v.z;
-      a[3] = v.w;
-    } else {
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        a[t] = cl >= 0 && c0 + t < cin ? src[(long long)(cl + off) * cin + c0 + t] : 0.f;
+  __device__ __forceinline__ void set_off(F32Step& c) const {
+    const int h = down ? 0 : k / 2;
+    c.off = nbr != nullptr ? 0 : ((c.dx - h) * g.ym + (c.dy - h)) * g.zm + (c.dz - h);
+  }
+  __device__ __forceinline__ F32Step step_at(int s) const {
+    const int nkc = chunks(), h = down ? 0 : k / 2;
+    F32Step c;
+    c.tap = s / nkc;
+    c.c0 = (s - c.tap * nkc) * FBK;
+    c.dx = xonly ? c.tap : c.tap % k;
+    c.dy = xonly ? h : (c.tap / k) % k;
+    c.dz = xonly ? h : c.tap / (k * k);
+    set_off(c);
+    return c;
+  }
+  __device__ __forceinline__ void next(F32Step& c) const {
+    c.c0 += FBK;
+    if (c.c0 < cin) return;  // the tap's last chunk starts below cin
+    c.c0 = 0;
+    ++c.tap;
+    if (xonly) {
+      ++c.dx;
+    } else if (++c.dx == k) {
+      c.dx = 0;
+      if (++c.dy == k) {
+        c.dy = 0;
+        ++c.dz;
+      }
     }
-    const int gn = n0 + m;  // weights rows are cpad-aligned: one float4
-    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gn < cout) w = *reinterpret_cast<const float4*>(wt + ((long long)gn * taps() + tap) * cpad + c0);
-    b[0] = w.x;
-    b[1] = w.y;
-    b[2] = w.z;
-    b[3] = w.w;
+    set_off(c);
+  }
+
+  template <int BN>
+  __device__ __forceinline__ void load(const F32Step& cur, float* st) const {
+    constexpr int T = F32Tile<BN>::THREADS;
+    const int tap = cur.tap, c0 = cur.c0, off = cur.off, nt = taps();
+    const int* src = nbr != nullptr ? nbr + tap * FBM : cell;
+    constexpr int Q = FBK / 4;  // 16-byte chunks a staged row
+    if (vec) {
+      for (int v = threadIdx.x; v < FBM * Q; v += T) {
+        const int m = v / Q, q = (v % Q) * 4, c = c0 + q, b = src[m];
+        const bool ok = b >= 0 && c < cin;
+        cp_async16(st + m * FLD + q, ok ? x + (long long)(b + off) * cin + c : x, ok);
+      }
+    } else {  // element copies (cin not a multiple of 4)
+      for (int e = threadIdx.x; e < FBM * FBK; e += T) {
+        const int m = e / FBK, kk = e % FBK, c = c0 + kk, b = src[m];
+        const bool ok = b >= 0 && c < cin;
+        cp_async4(st + m * FLD + kk, ok ? x + (long long)(b + off) * cin + c : x, ok);
+      }
+    }
+    float* sb = st + FBM * FLD;
+    for (int v = threadIdx.x; v < BN * Q; v += T) {
+      const int n = v / Q, q = (v % Q) * 4, gn = n0 + n;
+      const bool ok = gn < cout;
+      cp_async16(sb + n * FLD + q, ok ? wt + ((long long)gn * nt + tap) * cpad + c0 + q : wt, ok);
+    }
   }
 };
 
-// acc = the rows' products over ph's K steps, through shared memory, with
-// the next step's loads in flight over this step's FMAs
-__device__ __forceinline__ void f32_gemm(const F32Phase& ph, int steps, float (*as)[FM + 4],
-                                         float (*bs)[FN + 4], float (&acc)[4][4]) {
-  const int tid = threadIdx.x, tm = tid >> 4, tn = tid & 15;
-  const int lm = tid >> 2, lk = (tid & 3) * 4;
+// acc = the rows' products over ld's K steps [first, first + steps)
+// through the FSTAGES-deep ring: each step waits for its slice, passes the
+// barrier (so the slot the previous step read is free for every warp),
+// issues the copies FSTAGES - 1 steps ahead, then runs its 16 channels.
+template <int BN>
+__device__ __forceinline__ void f32_ring_gemm(const F32Taps& ld, int first, int steps,
+                                              float* ring,
+                                              float (&acc)[8][F32Tile<BN>::TJ]) {
+  using T = F32Tile<BN>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tm = (warp / T::WN) * 4 + (lane >> 3), tn = (warp % T::WN) * 8 + (lane & 7);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float a[4], b[4];
-  if (steps > 0) ph.load(0, a, b);
-  for (int s = 0; s < steps; ++s) {
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      as[lk + t][lm] = a[t];
-      bs[lk + t][lm] = b[t];
+    for (int j = 0; j < T::TJ; ++j) acc[i][j] = 0.f;
+  F32Step cur = ld.step_at(first);
+  for (int s = 0; s < FSTAGES - 1; ++s) {
+    if (s < steps) {
+      ld.load<BN>(cur, ring + s * T::STAGE);
+      ld.next(cur);
     }
-    __syncthreads();
-    if (s + 1 < steps) ph.load(s + 1, a, b);
-#pragma unroll
-    for (int kk = 0; kk < FK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[kk][tm + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tn + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    cp_async_commit();
   }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<FSTAGES - 2>();
+    __syncthreads();
+    const int nx = s + FSTAGES - 1;
+    if (nx < steps) {
+      ld.load<BN>(cur, ring + (nx % FSTAGES) * T::STAGE);
+      ld.next(cur);
+    }
+    cp_async_commit();
+    const float* a = ring + (s % FSTAGES) * T::STAGE + tm * FLD;
+    const float* b = ring + (s % FSTAGES) * T::STAGE + (FBM + tn) * FLD;
+    // a kq step's 4 channels: this thread's 8 rows as float4s (held), each
+    // column's float4 in turn
+#pragma unroll 1
+    for (int kq = 0; kq < FBK; kq += 4) {
+      float4 av[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) av[i] = *reinterpret_cast<const float4*>(a + 16 * i * FLD + kq);
+#pragma unroll
+      for (int j = 0; j < T::TJ; ++j) {
+        const float4 bv = *reinterpret_cast<const float4*>(b + T::TNC * j * FLD + kq);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float t = fmaf(av[i].x, bv.x, acc[i][j]);
+          t = fmaf(av[i].y, bv.y, t);
+          t = fmaf(av[i].z, bv.z, t);
+          acc[i][j] = fmaf(av[i].w, bv.w, t);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(FT) conv_rows_f32_kernel(const __grid_constant__ ConvF32 p) {
-  __shared__ float as[FK][FM + 4];
-  __shared__ float bs[FK][FN + 4];
-  __shared__ int cell[FM], ocell[FM];
-  __shared__ float orow[FM];
-  const int tid = threadIdx.x, tm = tid >> 4, tn = tid & 15;
-  const int n0 = blockIdx.y * FN;
+// K splits of one float32 call, worked out on the card from the live rows
+// alone: the most that keep the (row block x column block x split) items
+// within one round of the card's resident blocks (p.target), at most s_max
+__device__ __forceinline__ int f32_k_splits(const ConvF32& p, int n_live, int col_blocks) {
+  const int items = (n_live + FBM - 1) / FBM * col_blocks;
+  if (items == 0 || p.s_max <= 1) return 1;
+  const int s = p.target / items;
+  return s < 1 ? 1 : s < p.s_max ? s : p.s_max;
+}
+
+// MAP: conv2 of the fused block, its taps through the row map
+template <int BN, bool MAP>
+__global__ void __launch_bounds__(F32Tile<BN>::THREADS, F32Tile<BN>::MIN_BLOCKS)
+    conv_rows_f32_kernel(const __grid_constant__ ConvF32 p) {
+  using T = F32Tile<BN>;
+  extern __shared__ __align__(16) float fring[];
+  __shared__ int cell[FBM];   // the row's tap base in gin (the down: fine cell 2o)
+  __shared__ int ocell[FBM];  // the row's cell in g (by_row: its place), -1 past the live rows
+  __shared__ float orow[FBM];
+  __shared__ int nbr[MAP ? MAP_TAPS * FBM : 1];  // MAP: (tap, row) positions in the mid
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tm = (warp / T::WN) * 4 + (lane >> 3), tn = (warp % T::WN) * 8 + (lane & 7);
   const int n_live = p.count[0];
-  const F32Phase main_ph{p.x, p.cin, p.cpad, p.k, p.xonly, p.down, p.vec_a, p.gin,
-                         p.wt, p.cout, n0, cell};
-  const F32Phase res_ph{p.res, p.cres, p.crpad, 1, 0, 0, p.vec_r, p.g, p.rwt, p.cout, n0,
-                        ocell};
-  float acc[4][4], racc[4][4];
-  for (int rb = blockIdx.x; rb * FM < n_live; rb += gridDim.x) {
-    if (tid < FM) {
-      const int i = rb * FM + tid;
+  const int col_blocks = (p.cout + BN - 1) / BN;
+  float acc[8][T::TJ];
+  const int n_split = f32_k_splits(p, n_live, col_blocks);
+  const int per_rb = col_blocks * n_split;
+
+  // work item = (row block rb, column block, K split sp), one a block in
+  // turn over a 1-D grid, so the busy blocks spread over the SMs; with one
+  // split the block also runs the epilogue, with more
+  // split_reduce_f32_kernel sums the splits
+  for (int it = blockIdx.x; it < (n_live + FBM - 1) / FBM * per_rb; it += gridDim.x) {
+    const int rb = it / per_rb, cs = it - rb * per_rb;
+    const int n0 = cs / n_split * BN, sp = cs % n_split;
+    const F32Taps main_ld{p.x, p.cin, p.k, p.xonly, p.down, p.vec_a, p.gin, p.wt, p.cpad,
+                          p.cout, n0, cell, MAP ? nbr : nullptr};
+    const F32Taps res_ld{p.res, p.cres, 1, 0, 0, p.vec_r, p.g, p.rwt, p.crpad, p.cout, n0,
+                         ocell, nullptr};
+    const int steps = main_ld.steps();
+    for (int r = tid; r < FBM; r += T::THREADS) {
+      const int i = rb * FBM + r;
       int c = -1, oc = -1;
       float o = 1.f;
       if (i < n_live) {
@@ -1264,50 +1414,198 @@ __global__ void __launch_bounds__(FT) conv_rows_f32_kernel(const __grid_constant
         c = p.down ? static_cast<int>(flat(p.gin, 2 * ix + MX, 2 * iy + MY, 2 * iz + MZ)) : oc;
         if (p.occ != nullptr) o = p.occ[oc];
       }
-      cell[tid] = c;
-      ocell[tid] = oc;
-      orow[tid] = o;
+      cell[r] = c;
+      ocell[r] = p.by_row && oc >= 0 ? i : oc;
+      orow[r] = o;
+      if constexpr (MAP) {  // tap t = dx + 3 dy + 9 dz at offset (d - 1) from the cell
+#pragma unroll
+        for (int t = 0; t < MAP_TAPS; ++t) {
+          const int off = ((t % 3 - 1) * p.g.ym + (t / 3 % 3 - 1)) * p.g.zm + t / 9 - 1;
+          nbr[t * FBM + r] = oc < 0 ? -1 : p.map[oc + off];
+        }
+      }
     }
     __syncthreads();
-    if (p.rwt != nullptr) {  // the fused 1x1: occ * (res @ rw * rscale + rbias)
-      f32_gemm(res_ph, p.crpad / FK, as, bs, acc);
+    // the fused 1x1, occ * (res @ rw * rscale + rbias), parked in part's
+    // slice after the splits (its first with one split) at the row's place
+    // in the list: a duplicate tile's rows share their cell, never a place
+    const int rslice = n_split > 1 ? n_split : 0;
+    if (p.rwt != nullptr && sp == 0) {
+      f32_ring_gemm<BN>(res_ld, 0, res_ld.steps(), fring, acc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i) {
+        const int m = tm + 16 * i;
+        if (ocell[m] < 0) continue;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int gn = n0 + tn + 16 * j;
-          float v = acc[i][j];
-          if (gn < p.cout) v = v * p.rscale[gn] + p.rbias[gn];
-          if (p.occ != nullptr) v = v * orow[tm + 16 * i];
-          racc[i][j] = v;
+        for (int j = 0; j < T::TJ; ++j) {
+          const int gn = n0 + tn + T::TNC * j;
+          if (gn >= p.cout) continue;
+          float v = fmaf(acc[i][j], p.rscale[gn], p.rbias[gn]);
+          if (p.occ != nullptr) v = v * orow[m];
+          p.part[((long long)rslice * p.n_list + rb * FBM + m) * p.cout + gn] = v;
         }
+      }
     }
-    f32_gemm(main_ph, main_ph.taps() * (p.cpad / FK), as, bs, acc);
+    const int k0 = (int)((long long)steps * sp / n_split);
+    const int k1 = (int)((long long)steps * (sp + 1) / n_split);
+    f32_ring_gemm<BN>(main_ld, k0, k1 - k0, fring, acc);
+    if (n_split > 1) {  // this split's raw sums
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < 8; ++i) {
+        const int m = tm + 16 * i;
+        if (ocell[m] < 0) continue;
+#pragma unroll
+        for (int j = 0; j < T::TJ; ++j) {
+          const int gn = n0 + tn + T::TNC * j;
+          if (gn < p.cout)
+            p.part[((long long)sp * p.n_list + rb * FBM + m) * p.cout + gn] = acc[i][j];
+        }
+      }
+      __syncthreads();  // cell, ocell, orow and nbr are rewritten by the next item
+      continue;
+    }
+    // affine, mask, residual (plain, or the parked 1x1), ReLU
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
       const int m = tm + 16 * i, cl = ocell[m];
       if (cl < 0) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gn = n0 + tn + 16 * j;
+      for (int j = 0; j < T::TJ; ++j) {
+        const int gn = n0 + tn + T::TNC * j;
         if (gn >= p.cout) continue;
         const long long o = (long long)cl * p.cout + gn;
         float v = acc[i][j];
-        if (p.scale != nullptr) v = v * p.scale[gn] + p.bias[gn];
+        if (p.scale != nullptr) v = fmaf(v, p.scale[gn], p.bias[gn]);
         if (p.occ != nullptr) v = v * orow[m];
-        if (p.rwt != nullptr) v += racc[i][j];
+        if (p.rwt != nullptr) v += p.part[((long long)rb * FBM + m) * p.cout + gn];
         else if (p.res != nullptr) v += p.res[o];
         p.out[o] = p.relu ? fmaxf(v, 0.f) : v;
       }
     }
-    __syncthreads();  // cell, ocell and orow are rewritten by the next row block
+    __syncthreads();  // cell, ocell, orow and nbr are rewritten by the next row block
   }
 }
 
-// the up at float32: rows the live coarse parents, columns the 8 parities'
-// outputs (column j: parity j / cout, channel j % cout; wt (8, cout, cpad)
-// is then (8 cout, cpad)), K the parent's cin channels; the epilogue writes
-// child 2p + d at channel c_off + j % cout as up_rows_kernel does
+// the split sums of each live row in split order, then the epilogue:
+// affine, mask, residual (plain, or the fused 1x1's slice), ReLU; stored at
+// the row's cell (by_row: at its place in the row list), 4 channels a
+// thread where the widths allow
+__global__ void __launch_bounds__(256) split_reduce_f32_kernel(const __grid_constant__ ConvF32 p,
+                                                               int col_blocks) {
+  const int n_live = p.count[0];
+  const int n_split = f32_k_splits(p, n_live, col_blocks);
+  if (n_split == 1) return;
+  const int w = p.vec_o ? 4 : 1, nv = p.cout / w;
+  const long long n = (long long)n_live * nv;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x) {
+    const int i = static_cast<int>(e / nv), c0 = static_cast<int>(e % nv) * w;
+    int ix, iy, iz;
+    row_cell(p.tl, p.rows[i], ix, iy, iz);
+    const long long cl = flat(p.g, ix + MX, iy + MY, iz + MZ);
+    const long long ol = (p.by_row ? i : cl) * p.cout + c0;
+    const float o = p.occ != nullptr ? p.occ[cl] : 1.f;
+    float v[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (t >= w) break;
+      const int c = c0 + t;
+      float a = 0.f;
+      for (int sp = 0; sp < n_split; ++sp) a += p.part[((long long)sp * p.n_list + i) * p.cout + c];
+      if (p.scale != nullptr) a = fmaf(a, p.scale[c], p.bias[c]);
+      if (p.occ != nullptr) a = a * o;
+      if (p.rwt != nullptr) a += p.part[((long long)n_split * p.n_list + i) * p.cout + c];
+      else if (p.res != nullptr) a += p.res[cl * p.cout + c];
+      v[t] = p.relu ? fmaxf(a, 0.f) : a;
+    }
+    if (w == 4)
+      *reinterpret_cast<float4*>(p.out + ol) = make_float4(v[0], v[1], v[2], v[3]);
+    else
+      p.out[ol] = v[0];
+  }
+}
+
+// a conv_rows_f32_kernel instance's shared-memory limit, raised once a
+// device
+template <int BN, bool MAP>
+cudaError_t f32_smem_raised() {
+  static unsigned raised = 0;  // devices whose limit is raised for this instance
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 32 && (raised >> dev & 1u)) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv_rows_f32_kernel<BN, MAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      F32Tile<BN>::SMEM);
+  if (e == cudaSuccess && dev < 32) raised |= 1u << dev;
+  return e;
+}
+
+// conv_rows_f32_kernel (and its K-split reduction) at the narrowest block
+// width of 64, 96 and 128 columns that holds cout (128 past it). The split
+// target is the card's resident blocks of the dense-tap instance (the
+// row-map one takes the same, so the fused block splits as the convs do).
+template <int BN, bool MAP>
+cudaError_t launch_conv_f32_rows(const ConvF32& p, cudaStream_t s) {
+  using T = F32Tile<BN>;
+  cudaError_t e = f32_smem_raised<BN, false>();
+  if (e == cudaSuccess && MAP) e = f32_smem_raised<BN, MAP>();
+  if (e != cudaSuccess) return e;
+  static int per_sm = 0;  // resident blocks an SM
+  if (per_sm == 0) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_rows_f32_kernel<BN, false>,
+                                                      T::THREADS, T::SMEM);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) per_sm = 1;
+  }
+  ConvF32 q = p;
+  q.target = per_sm * sm_count();
+  const int col_blocks = (p.cout + BN - 1) / BN;
+  conv_rows_f32_kernel<BN, MAP>
+      <<<blocks_for((long long)p.n_list * col_blocks * p.s_max, FBM), T::THREADS, T::SMEM, s>>>(q);
+  if (p.s_max > 1)
+    split_reduce_f32_kernel<<<blocks_for((long long)p.n_list * p.cout / 4, 256), 256, 0, s>>>(
+        q, col_blocks);
+  return cudaGetLastError();
+}
+
+template <bool MAP = false>
+cudaError_t launch_conv_f32_cols(const ConvF32& p, cudaStream_t s) {
+  return p.cout <= 64   ? launch_conv_f32_rows<64, MAP>(p, s)
+         : p.cout <= 96 ? launch_conv_f32_rows<96, MAP>(p, s)
+                        : launch_conv_f32_rows<128, MAP>(p, s);
+}
+
+// the float32 conv after compaction: conv_rows_f32_kernel over the listed
+// rows' live part, then (identity residual) dead_rows_kernel
+int launch_conv_f32(ConvF32 p, int n_rows, int* rows, int want_dead, cudaStream_t s) {
+  int* count = rows + n_rows;
+  cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
+  compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(p.tl, p.g, p.occ, 0, n_rows, rows, count,
+                                                      want_dead, nullptr);
+  p.rows = rows;
+  p.count = count;
+  p.n_list = n_rows;
+  const cudaError_t e = launch_conv_f32_cols(p, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (want_dead) {
+    const int vec = p.cout % 4 == 0 && aligned16(p.res) && aligned16(p.out);
+    dead_rows_kernel<float><<<blocks_for((long long)n_rows * (vec ? p.cout / 4 : p.cout), 256),
+                              256, 0, s>>>(p.tl, p.g, rows, count, n_rows, p.res, p.cout,
+                                           p.relu, vec, p.out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the up at float32 (rows 3f, 7f): rows the live coarse parents, columns
+// the 8 parities' outputs (column j: parity j / cout, channel j % cout; wt
+// (8, cout, cpad) is then (8 cout, cpad)), K the parent's cin channels, 16
+// a step; a block of 256 threads owns 64 parents by 64 columns, each
+// thread 4 rows (16 apart) by 4 columns (16 apart), the step's operands
+// staged k-major in shared memory with the next step's global loads in
+// registers; the epilogue writes child 2p + d at channel c_off + j % cout
+// as up_rows_kernel does. Each output is one product: a repeat is bitwise.
+constexpr int FM = 64, FN = 64, FK = 16, FT = 256;
+
 struct UpF32 {
   const float* x;
   int cin, cpad;
@@ -1325,16 +1623,42 @@ struct UpF32 {
   float* out;
 };
 
+// this thread's 4 operand values (parent m = tid / 4, channels 4 (tid % 4)
+// .. of step s) and 4 weight values (column n0 + tid / 4, the same channels)
+__device__ __forceinline__ void up_f32_load(const UpF32& p, int ncol, int n0, const int* cell,
+                                            int s, float (&a)[4], float (&b)[4]) {
+  const int c0 = s * FK + (threadIdx.x & 3) * 4, m = threadIdx.x >> 2, cl = cell[m];
+  if (p.vec_a) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (cl >= 0 && c0 < p.cin) v = *reinterpret_cast<const float4*>(p.x + (long long)cl * p.cin + c0);
+    a[0] = v.x;
+    a[1] = v.y;
+    a[2] = v.z;
+    a[3] = v.w;
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      a[t] = cl >= 0 && c0 + t < p.cin ? p.x[(long long)cl * p.cin + c0 + t] : 0.f;
+  }
+  const int gn = n0 + m;  // weight rows are cpad-aligned: one float4
+  float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (gn < ncol) w = *reinterpret_cast<const float4*>(p.wt + (long long)gn * p.cpad + c0);
+  b[0] = w.x;
+  b[1] = w.y;
+  b[2] = w.z;
+  b[3] = w.w;
+}
+
 __global__ void __launch_bounds__(FT) up_rows_f32_kernel(const __grid_constant__ UpF32 p) {
   __shared__ float as[FK][FM + 4];
   __shared__ float bs[FK][FN + 4];
   __shared__ int cell[FM];
   __shared__ int pc[FM][3];
   const int tid = threadIdx.x, tm = tid >> 4, tn = tid & 15;
+  const int lm = tid >> 2, lk = (tid & 3) * 4;
   const int n0 = blockIdx.y * FN, ncol = 8 * p.cout;
   const int n_live = p.count[0];
-  // k = 1 over the parents' own cells: one tap of the conv loader
-  const F32Phase ph{p.x, p.cin, p.cpad, 1, 0, 0, p.vec_a, p.gin, p.wt, ncol, n0, cell};
+  const int steps = p.cpad / FK;
   float acc[4][4];
   for (int rb = blockIdx.x; rb * FM < n_live; rb += gridDim.x) {
     if (tid < FM) {
@@ -1351,7 +1675,34 @@ __global__ void __launch_bounds__(FT) up_rows_f32_kernel(const __grid_constant__
       cell[tid] = c;
     }
     __syncthreads();
-    f32_gemm(ph, p.cpad / FK, as, bs, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    float a[4], b[4];
+    up_f32_load(p, ncol, n0, cell, 0, a, b);
+    for (int s = 0; s < steps; ++s) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        as[lk + t][lm] = a[t];
+        bs[lk + t][lm] = b[t];
+      }
+      __syncthreads();
+      if (s + 1 < steps) up_f32_load(p, ncol, n0, cell, s + 1, a, b);
+#pragma unroll
+      for (int kk = 0; kk < FK; ++kk) {
+        float av[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = as[kk][tm + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tn + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = tm + 16 * i;
@@ -1377,26 +1728,6 @@ __global__ void __launch_bounds__(FT) up_rows_f32_kernel(const __grid_constant__
     }
     __syncthreads();  // cell and pc are rewritten by the next row block
   }
-}
-
-// the float32 conv after compaction: conv_rows_f32_kernel over the listed
-// rows' live part, then (identity residual) dead_rows_kernel
-int launch_conv_f32(ConvF32 p, int n_rows, int* rows, int want_dead, cudaStream_t s) {
-  int* count = rows + n_rows;
-  cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
-  compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(p.tl, p.g, p.occ, 0, n_rows, rows, count,
-                                                      want_dead, nullptr);
-  p.rows = rows;
-  p.count = count;
-  const dim3 grid(blocks_for(n_rows, FM), (p.cout + FN - 1) / FN);
-  conv_rows_f32_kernel<<<grid, FT, 0, s>>>(p);
-  if (want_dead) {
-    const int vec = p.cout % 4 == 0 && aligned16(p.res) && aligned16(p.out);
-    dead_rows_kernel<float><<<blocks_for((long long)n_rows * (vec ? p.cout / 4 : p.cout), 256),
-                              256, 0, s>>>(p.tl, p.g, rows, count, n_rows, p.res, p.cout,
-                                           p.relu, vec, p.out);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_up_f32(UpF32 p, int n_par, int* rows, int want_dead, cudaStream_t s) {
@@ -1628,25 +1959,24 @@ extern "C" int tiled_block3d_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// float32 grids, weights, residual and skip, with the arguments of the
-// bfloat16 launchers above (no split-K scratch: the float32 rows are never
-// split). rows: int32 scratch of n_rows + 2 (the up's: n_rows / 8 + 2).
+// float32 grids, weights, residual and skip, with the bfloat16 launchers'
+// arguments: rows, part and s_max as those take them (the float32 convs
+// split K the same way, from the live rows on the card at 128 a work item).
 
 extern "C" int tiled_conv3d_f32_launch(
     const void* x, int cin, int xm, int ym, int zm, const void* wt, int cpad, int k,
     int cout, const int* tiles, int n_rows, int tx, int ty, int tz, const float* scale,
     const float* bias, const float* occ, const void* res, int cres, const void* rwt,
     int crpad, const float* rscale, const float* rbias, int relu, int* rows, void* out,
-    void* stream) {
+    float* part, int s_max, void* stream) {
   if (n_rows <= 0) return 0;
   const Grid g{xm, ym, zm};
-  const auto* xf = static_cast<const float*>(x);
-  const auto* rf = static_cast<const float*>(res);
-  const ConvF32 p{xf, cin, cpad, k, 0, 0, g, g, static_cast<const float*>(wt), cout,
-                  Tiles{tiles, n_rows, tx, ty, tz}, nullptr, nullptr, scale, bias, occ, rf,
-                  cres, crpad, static_cast<const float*>(rwt), rscale, rbias, relu,
+  const ConvF32 p{static_cast<const float*>(x), cin, cpad, k, 0, 0, g, g,
+                  static_cast<const float*>(wt), cout, Tiles{tiles, n_rows, tx, ty, tz},
+                  nullptr, nullptr, scale, bias, occ, static_cast<const float*>(res), cres,
+                  crpad, static_cast<const float*>(rwt), rscale, rbias, relu,
                   cin % 4 == 0 && aligned16(x), rwt != nullptr && cres % 4 == 0 && aligned16(res),
-                  static_cast<float*>(out)};
+                  cout % 4 == 0 && aligned16(out), static_cast<float*>(out), part, s_max};
   return launch_conv_f32(p, n_rows, rows, occ != nullptr && res != nullptr && rwt == nullptr,
                          static_cast<cudaStream_t>(stream));
 }
@@ -1660,7 +1990,8 @@ extern "C" int tiled_conv3d_prefolded_f32_launch(
   const ConvF32 p{static_cast<const float*>(x), cf, cpad, k, 1, 0, g, g,
                   static_cast<const float*>(wt), cout, Tiles{tiles, n_rows, tx, ty, tz},
                   nullptr, nullptr, scale, bias, occ, nullptr, 0, 0, nullptr, nullptr, nullptr,
-                  relu, cf % 4 == 0 && aligned16(x), 0, static_cast<float*>(out)};
+                  relu, cf % 4 == 0 && aligned16(x), 0, cout % 4 == 0 && aligned16(out),
+                  static_cast<float*>(out), nullptr, 1};
   return launch_conv_f32(p, n_rows, rows, 0, static_cast<cudaStream_t>(stream));
 }
 
@@ -1668,13 +1999,13 @@ extern "C" int tiled_down2_f32_launch(
     const void* x, int cin, int xm, int ym, int zm, const void* wt, int cpad, int cout,
     const int* tiles, int n_rows, int tx, int ty, int tz, int cxm, int cym, int czm,
     const float* scale, const float* bias, const float* occ, int relu, int* rows, void* out,
-    void* stream) {
+    float* part, int s_max, void* stream) {
   if (n_rows <= 0) return 0;
   const ConvF32 p{static_cast<const float*>(x), cin, cpad, 2, 0, 1, Grid{xm, ym, zm},
                   Grid{cxm, cym, czm}, static_cast<const float*>(wt), cout,
                   Tiles{tiles, n_rows, tx, ty, tz}, nullptr, nullptr, scale, bias, occ, nullptr,
                   0, 0, nullptr, nullptr, nullptr, relu, cin % 4 == 0 && aligned16(x), 0,
-                  static_cast<float*>(out)};
+                  cout % 4 == 0 && aligned16(out), static_cast<float*>(out), part, s_max};
   return launch_conv_f32(p, n_rows, rows, 0, static_cast<cudaStream_t>(stream));
 }
 
@@ -1725,6 +2056,53 @@ extern "C" int tiled_up2_into_f32_launch(
     const int vec = cout % 4 == 0 && ctot % 4 == 0 && skip_c % 4 == 0 && aligned16(dest);
     up_dead_kernel<float><<<blocks_for((long long)n_par * 32, 256), 256, 0, s>>>(
         tl, go, rows, rows + n_par, n_par, cout, ctot, skip_c, vec, of);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tiled_block3d_launch's function and arguments on float32 grids, weights
+// and mid: conv_rows_f32_kernel twice over one compaction (conv1 into the
+// compact mid, conv2 through the row map), with the splits the two float32
+// tiled_conv3d calls take
+extern "C" int tiled_block3d_f32_launch(
+    const void* x, int cin, int xm, int ym, int zm, const void* w1t, int cpad1,
+    const void* w2t, int cpad2, int cmid, int cout, const int* tiles, int n_rows, int tx,
+    int ty, int tz, const float* scale1, const float* bias1, const float* scale2,
+    const float* bias2, const float* occ, const void* rwt, int crpad, const float* rscale,
+    const float* rbias, int* rows, int* map, void* mid, void* out, float* part, int s_max1,
+    int s_max2, void* stream) {
+  if (n_rows <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Grid g{xm, ym, zm};
+  const Tiles tl{tiles, n_rows, tx, ty, tz};
+  int* count = rows + n_rows;
+  const int want_dead = rwt == nullptr;
+  cudaMemsetAsync(count, 0, 2 * sizeof(int), s);
+  cudaMemsetAsync(map, 0xff, (size_t)xm * ym * zm * sizeof(int), s);
+  compact_kernel<<<(n_rows + 255) / 256, 256, 0, s>>>(tl, g, occ, 0, n_rows, rows, count,
+                                                      want_dead, map);
+  const auto* xf = static_cast<const float*>(x);
+  auto* mf = static_cast<float*>(mid);
+  auto* of = static_cast<float*>(out);
+  ConvF32 p1{xf, cin, cpad1, 3, 0, 0, g, g, static_cast<const float*>(w1t), cmid, tl, rows,
+             count, scale1, bias1, occ, nullptr, 0, 0, nullptr, nullptr, nullptr, 1,
+             cin % 4 == 0 && aligned16(x), 0, cmid % 4 == 0 && aligned16(mid), mf, part,
+             s_max1, n_rows};
+  p1.by_row = 1;
+  cudaError_t e = launch_conv_f32_cols(p1, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ConvF32 p2{mf, cmid, cpad2, 3, 0, 0, g, g, static_cast<const float*>(w2t), cout, tl, rows,
+             count, scale2, bias2, occ, xf, cin, crpad, static_cast<const float*>(rwt), rscale,
+             rbias, 1, cmid % 4 == 0 && aligned16(mid),
+             rwt != nullptr && cin % 4 == 0 && aligned16(x), cout % 4 == 0 && aligned16(out),
+             of, part, s_max2, n_rows};
+  p2.map = map;
+  e = launch_conv_f32_cols<true>(p2, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (want_dead) {
+    const int vec = cout % 4 == 0 && aligned16(x) && aligned16(out);
+    dead_rows_kernel<float><<<blocks_for((long long)n_rows * (vec ? cout / 4 : cout), 256), 256,
+                              0, s>>>(tl, g, rows, count, n_rows, xf, cout, 1, vec, of);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,7 @@ The kernels are in ``csrc/tiled_conv.cu``; its header says what bounds them
 on the H100 and how they are built.
 
 Grids are margined and channel-last, (X + 2MX, Y + 2MY, Z + 2MZ, C), with
-their real channel count, bfloat16 or float32 (``tiled_block3d``: bfloat16
-on the card; its float32 instance is on no path). ``tiles`` is a (T, 3)
+their real channel count, bfloat16 or float32. ``tiles`` is a (T, 3)
 int32 tensor of tile coordinates over the interior of the OUTPUT grid;
 ``occ`` is the output level's margined (Xm, Ym, Zm) float32 occupancy grid.
 Weights are (K, Cin, Cout) with x-fastest offsets (``idx = dx + k*dy +
@@ -58,20 +57,13 @@ _ARGTYPES = {
     "tiled_up2_into_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I,
                               _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                               _P],
-    "tiled_conv3d_f32_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I,
-                                _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P,
-                                _P, _I, _P, _P, _P],
-    "tiled_down2_f32_launch": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I,
-                               _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
-                               _P],
     "tiled_block3d_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P,
                              _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                              _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
-# the prefolded stem's and the ups' float32 launchers take the bfloat16
-# ones' arguments
-for _name in ("tiled_conv3d_prefolded", "tiled_up2", "tiled_up2_into"):
-    _ARGTYPES[f"{_name}_f32_launch"] = _ARGTYPES[f"{_name}_launch"]
+# each float32 launcher takes its bfloat16 twin's arguments
+for _name in list(_ARGTYPES):
+    _ARGTYPES[_name.replace("_launch", "_f32_launch")] = _ARGTYPES[_name]
 _launcher = functools.partial(launcher, "tiled_conv", _ARGTYPES)
 #: the grid dtypes of the card's kernels, and their launch symbols' suffix
 KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
@@ -142,7 +134,9 @@ def _check_cells(shape) -> None:
         raise ValueError(f"grid {tuple(shape[:3])} has 2^31 cells or more")
 
 
-# the occupied-row kernels' reduction step: 32 input channels
+# the K-major weights' channel padding, and the bfloat16 kernels' reduction
+# step: 32 input channels (the float32 kernels step 16 channels and read no
+# padding past Cin)
 K_CHUNK = 32
 # the conv's K splits, for calls whose live rows are too few to fill the
 # card (the kernel picks the count from them): at most MAX_SPLITS, in a
@@ -180,25 +174,31 @@ def _max_splits(steps: int, n_rows: int, cout: int, extra: int) -> int:
                       SPLIT_BYTES // max(1, 4 * n_rows * cout) - extra))
 
 
-def _split_scratch(steps: int, n_rows: int, cout: int, extra: int, device):
+def _split_scratch(steps: int, n_rows: int, cout: int, extra: int, device,
+                   park: bool = False):
     """(s_max, part) of an occupied-row conv call: :func:`_max_splits` and
-    their float32 scratch; no scratch with one split."""
+    their float32 scratch; with one split, none, or with ``park`` (the
+    float32 kernel, which parks the fused 1x1's result there) the
+    ``extra`` slices alone."""
     s_max = _max_splits(steps, n_rows, cout, extra)
-    part = None if s_max == 1 else torch.empty(
-        (s_max + extra) * n_rows * cout, dtype=torch.float32, device=device)
+    slices = s_max + extra if s_max > 1 else extra if park else 0
+    part = None if slices == 0 else torch.empty(
+        slices * n_rows * cout, dtype=torch.float32, device=device)
     return s_max, part
 
 
 def _block_splits(cin: int, mid: int, cout: int, fused: bool, n_rows: int,
-                  device):
+                  device, park: bool = False):
     """(s1, s2, part) of a fused block call: the most K splits of its conv1
     and conv2, as the model's two tiled_conv3d calls take them (so the
     block sums in their order), and one float32 scratch that both use in
-    turn; no scratch when neither splits."""
+    turn, sized as :func:`_split_scratch` sizes each; none when neither
+    needs one."""
     s1 = _max_splits(27 * _cpad(cin) // K_CHUNK, n_rows, mid, 0)
     s2 = _max_splits(27 * _cpad(mid) // K_CHUNK, n_rows, cout, int(fused))
     size = max(s1 * mid if s1 > 1 else 0,
-               (s2 + int(fused)) * cout if s2 > 1 else 0) * n_rows
+               (s2 + int(fused)) * cout if s2 > 1
+               else int(fused and park) * cout) * n_rows
     part = torch.empty(size, dtype=torch.float32, device=device) if size else None
     return s1, s2, part
 
@@ -493,11 +493,11 @@ def tiled_conv3d(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
             tiles.data_ptr(), n_rows, *tile_shape, _ptr(sc), _ptr(bi), _ptr(oc),
             _ptr(res), 0 if res is None else res.shape[3], _ptr(rwt), crpad,
             _ptr(rs), _ptr(rb), int(relu_out), rows.data_ptr(), out.data_ptr()]
-    if not route:  # the bfloat16 kernel splits K when few rows are live
-        s_max, part = _split_scratch(k ** 3 * cpad // K_CHUNK, n_rows, cout,
-                                     int(rwt is not None), dev)
-        args += [_ptr(part), s_max]
-    rc = _launcher(f"tiled_conv3d{route}_launch")(*args, _stream())
+    # the kernel splits K when few rows are live
+    s_max, part = _split_scratch(k ** 3 * cpad // K_CHUNK, n_rows, cout,
+                                 int(rwt is not None), dev, park=bool(route))
+    rc = _launcher(f"tiled_conv3d{route}_launch")(*args, _ptr(part), s_max,
+                                                  _stream())
     check(rc, "tiled_conv3d")
     _count(tiled_conv3d, route)
     return out
@@ -605,10 +605,10 @@ def tiled_down2(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor, *,
     args = [x.data_ptr(), x.shape[3], *x.shape[:3], wt.data_ptr(), cpad, cout,
             tiles.data_ptr(), n_rows, *tile_shape, *cshape, _ptr(sc), _ptr(bi),
             _ptr(oc), int(relu_out), rows.data_ptr(), out.data_ptr()]
-    if not route:  # the bfloat16 kernel splits K when few rows are live
-        s_max, part = _split_scratch(8 * cpad // K_CHUNK, n_rows, cout, 0, dev)
-        args += [_ptr(part), s_max]
-    rc = _launcher(f"tiled_down2{route}_launch")(*args, _stream())
+    # the kernel splits K when few rows are live
+    s_max, part = _split_scratch(8 * cpad // K_CHUNK, n_rows, cout, 0, dev)
+    rc = _launcher(f"tiled_down2{route}_launch")(*args, _ptr(part), s_max,
+                                                 _stream())
     check(rc, "tiled_down2")
     _count(tiled_down2, route)
     return out
@@ -762,9 +762,6 @@ def tiled_block3d(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     route = _route(x)
     if route == "plain":
         return tiled_block3d_plain(x, w1, w2, tiles, **kw)
-    if route:
-        raise TypeError("tiled_block3d takes bfloat16 grids on the card: its "
-                        "float32 instance is on no path and is not ported")
     _check_cells(x.shape)
     dev = x.device
     out = torch.zeros(x.shape[:3] + (cout,), dtype=x.dtype, device=dev)
@@ -777,16 +774,17 @@ def tiled_block3d(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     rows = torch.empty(n_rows + 2, dtype=torch.int32, device=dev)
     row_map = torch.empty(x.shape[:3], dtype=torch.int32, device=dev)
     mid_rows = torch.empty(n_rows * mid, dtype=x.dtype, device=dev)
-    s1, s2, part = _block_splits(cin, mid, cout, res_w is not None, n_rows, dev)
-    rc = _launcher("tiled_block3d_launch")(
+    s1, s2, part = _block_splits(cin, mid, cout, res_w is not None, n_rows, dev,
+                                 park=bool(route))
+    rc = _launcher(f"tiled_block3d{route}_launch")(
         x.data_ptr(), cin, *x.shape[:3], w1t.data_ptr(), cpad1, w2t.data_ptr(),
         cpad2, mid, cout, tiles.data_ptr(), n_rows, *tile_shape,
         *[_ptr(t) for t in f[:5]], _ptr(rwt), crpad, _ptr(f[5]), _ptr(f[6]),
         rows.data_ptr(), row_map.data_ptr(), mid_rows.data_ptr(),
         out.data_ptr(), _ptr(part), s1, s2, _stream())
     check(rc, "tiled_block3d")
-    tiled_block3d.launches += 1
+    _count(tiled_block3d, route)
     return out
 
 
-tiled_block3d.launches = 0
+tiled_block3d.launches = tiled_block3d.launches_f32 = 0

@@ -103,14 +103,19 @@ category, symmetry labels), and runs both training loops with process
 workers on six smaller scenes: two validated epochs (the dense kernels'
 launches counted), a checkpoint each, and a second call (thread workers)
 that resumes.
-The f32 phase runs rows 1-3, 6 and 7 on float32 grids
+The f32 phase runs rows 1-3, 6, 7 and 9 on float32 grids
 (tpu.conv_dtype=float32): every configuration of the float32 joint path
 (default and up_impl="into") and of the separate path's prefolded stem
 against its plain version (1e-5 of each output's peak, TF32 off), a
 bitwise repeat and exact zeros at unoccupied listed cells, timed as phase
-1 times the bf16 rows (bounds at the float32 FFMA rate); the float32 joint
-path and separate evaluator over the three scenes (exact float32 launch
-counts, per-stage ms, scenes/s, peak memory); the float32 dense backbone
+1 times the bf16 rows (bounds at the float32 FFMA rate) and summed by
+level (one by_level line, row 9 beside its two convs); the fused block at
+each of the 23 BasicBlocks of a float32 joint pass, checked as phase 1
+checks the bf16 one (1e-5 of the peak against its plain version, the two
+float32 convs and a repeat bit for bit, launches_f32 exactly 23); the
+float32 joint path and separate evaluator over the three scenes (exact
+float32 launch counts, per-stage ms, scenes/s, peak memory); the float32
+dense backbone
 against the float32 sparse one; eval_joint and eval_separate at float32
 over a ScanNet tree. The train_dense phase holds the dense training
 route's float32 gradients to the gather step's (elementwise at a narrow
@@ -125,7 +130,7 @@ its CPU route at the joint scene's configuration, times it and checks it
 for host syncs.
 
 The last two lines are the kernels' summary (the nine bf16 rows, then the
-five float32 rows as <name>_f32) and the status line. The script
+six float32 rows as <name>_f32) and the status line. The script
 exits non-zero, printing neither, if there is no CUDA device, if the port is
 missing, or if any phase fails.
 """
@@ -175,6 +180,8 @@ VARIANT_PER_SCENE = {"tiled_conv3d": 47, "tiled_down2": 4, "tiled_up2": 2,
                      "tiled_up2_into": 2, "hv_splat_windowed": 1,
                      "hv_splat": 0, "tiled_block3d": 0}
 N_SEPARATE_SCENES = 2
+# the BasicBlocks of a MinkUNet34C pass (layers 2, 3, 4, 6, 2, 2, 2, 2)
+N_BLOCKS = 23
 # the sparse path (backbone="sparse") runs none of the dense backbone's
 # kernels: one objectness splat a scene, joint or the nine categories
 SPARSE_PER_SCENE = {"tiled_conv3d": 0, "tiled_conv3d_prefolded": 0,
@@ -754,10 +761,10 @@ def block_bound(x, w1, w2, tiles, ts, occ, res_w):
     """(bound_ms, bound_by) of one BasicBlock: the listed cells' input and
     output, both weights (and the 1x1 downsample's) and occupancy moved
     once, no mid (every occupied cell lies in a listed tile, so the halo
-    around them holds zeros the block need not read); against the bf16
-    MACs of the occupied (output, tap) pairs of both convs (the mid is
-    masked by the same occupancy as the input), plus the 1x1 at occupied
-    cells."""
+    around them holds zeros the block need not read); against the MACs,
+    at the grid dtype's rate, of the occupied (output, tap) pairs of both
+    convs (the mid is masked by the same occupancy as the input), plus the
+    1x1 at occupied cells."""
     import torch
 
     import canonicalvoting_tpu_torch.ops.tiled_conv as tc
@@ -776,16 +783,27 @@ def block_bound(x, w1, w2, tiles, ts, occ, res_w):
     flops = 2 * pairs * (cin * mid + mid * cout)
     if res_w is not None:
         flops += 2 * n_live * cin * cout
-    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_rate(x) * 1e3
     return ((t_b, "bytes") if t_b >= t_f else (t_f, "operations")), \
         {"listed_cells": rows, "occupied_cells": n_live, "occupied_pairs": pairs}
 
 
-def phase1_blocks(pipe, args, s, levels, by_level, failures):
+def add_level(by_level, name, lvl, calls, **ms):
+    """Add one configuration's times (ms a call, ``calls`` a scene) to its
+    level's sums in ``by_level[name]``."""
+    lv = by_level[name].setdefault(lvl, {k: 0.0 for k in ms} | {"calls": 0})
+    for k, v in ms.items():
+        lv[k] += (v or 0.0) * calls
+    lv["calls"] += calls
+
+
+def phase1_blocks(pipe, args, s, levels, by_level, failures,
+                  rel_tol=CONV_REL_TOL, phase=1):
     """tiled_block3d, which no path runs, on the recorded input of each of
-    the default joint pass's 23 BasicBlocks: against its plain version
-    within 1% of the output's largest magnitude, bitwise equal to the
-    two-conv output of that block and to a repeated call; one call a level
+    the joint pass's N_BLOCKS BasicBlocks (``pipe``'s grid dtype): against
+    its plain version within ``rel_tol`` of the output's largest magnitude,
+    bitwise equal to the two-conv output of that block and to a repeated
+    call, the dtype's launch counter exactly N_BLOCKS; one call a level
     under torch.cuda.set_sync_debug_mode("error"); at one L0 and one L1
     block of each residual (identity, fused 1x1) on unmasked random inputs
     against the plain version and the two convs (the identity residual's
@@ -823,13 +841,17 @@ def phase1_blocks(pipe, args, s, levels, by_level, failures):
 
     # the checking calls alone, counted by the wrapper before any timing
     torch.cuda.synchronize()
+    counter = "launches_f32" if blocks[0][1].dtype == torch.float32 else "launches"
     reset_counters()
+    setattr(tc.tiled_block3d, counter, 0)
     checks = []
     for blk, x, occ, tiles, ts, out in blocks:
         a, kw = block_call(blk, x, occ, tiles, ts)
         got = tc.tiled_block3d(*a, **kw)
         checks.append((got, out))
-    s["launches"] = tc.tiled_block3d.launches
+    s["launches"] = getattr(tc.tiled_block3d, counter)
+    if s["launches"] != N_BLOCKS or len(blocks) != N_BLOCKS:
+        failures.append(("tiled_block3d", counter, s["launches"], len(blocks)))
     s["library_ms"] = None
     s["two_conv_ms"] = s["two_conv_device_ms"] = s["two_conv_host_ms"] = 0.0
     by_level["tiled_block3d"] = {}
@@ -848,7 +870,7 @@ def phase1_blocks(pipe, args, s, levels, by_level, failures):
             extra["sync_free"], why = sync_free(lambda: tc.tiled_block3d(*a, **kw))
             if not extra["sync_free"]:
                 failures.append(("tiled_block3d", i, "host sync inside the call", why))
-        tol = CONV_REL_TOL * scale
+        tol = rel_tol * scale
         if not (err <= tol and all(extra.values())):
             failures.append(("tiled_block3d", i, err, tol, extra))
         cout = a[2].shape[2]
@@ -879,16 +901,11 @@ def phase1_blocks(pipe, args, s, levels, by_level, failures):
         s["device_ms"] += dev_ms
         s["bound_ms"] += bound_ms
         s[bound_by] += bound_ms
-        lv = by_level["tiled_block3d"].setdefault(lvl, {
-            "ms": 0.0, "device_ms": 0.0, "host_ms": 0.0, "bound_ms": 0.0,
-            "fill_ms": 0.0, "two_conv_ms": 0.0, "two_conv_device_ms": 0.0,
-            "two_conv_host_ms": 0.0, "calls": 0})
-        for k, v in (("ms", ms), ("device_ms", dev_ms), ("host_ms", host),
-                     ("bound_ms", bound_ms), ("fill_ms", fill_ms),
-                     ("two_conv_ms", two_ms), ("two_conv_device_ms", two_dev),
-                     ("two_conv_host_ms", two_host), ("calls", 1)):
-            lv[k] += v
-        emit({"phase": 1, "kernel": "tiled_block3d", "block": i, "level": lvl,
+        add_level(by_level, "tiled_block3d", lvl, 1, ms=ms, device_ms=dev_ms,
+                  host_ms=host, bound_ms=bound_ms, fill_ms=fill_ms,
+                  two_conv_ms=two_ms, two_conv_device_ms=two_dev,
+                  two_conv_host_ms=two_host)
+        emit({"phase": phase, "kernel": "tiled_block3d", "block": i, "level": lvl,
               "config": [str(tuple(x.shape[3:])), str(tuple(a[1].shape)),
                          str(tuple(a[2].shape)), str(ts), str(int(tiles.shape[0])),
                          "1x1" if blk.downsample else "identity"],
@@ -898,16 +915,18 @@ def phase1_blocks(pipe, args, s, levels, by_level, failures):
               "two_conv_host_ms": two_host, "two_conv_device_ms": two_dev,
               "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
               **work})
-    block_unmasked_checks(blocks, levels, block_call, bitwise, failures)
+    block_unmasked_checks(blocks, levels, block_call, bitwise, failures,
+                          rel_tol, phase)
     blocks.clear()
 
 
-def block_unmasked_checks(blocks, levels, block_call, bitwise, failures):
+def block_unmasked_checks(blocks, levels, block_call, bitwise, failures,
+                          rel_tol, phase):
     """The fused block at one L0 and one L1 block of each residual on
-    random inputs that are non-zero at unoccupied cells too: within 1% of
-    the plain version's peak, bitwise equal to the two convs and to a
-    repeat; the identity residual's unoccupied listed cells hold relu(x)
-    exactly, the fused 1x1's exact zeros. The model's inputs are zero
+    random inputs that are non-zero at unoccupied cells too: within
+    ``rel_tol`` of the plain version's peak, bitwise equal to the two convs
+    and to a repeat; the identity residual's unoccupied listed cells hold
+    relu(x) exactly, the fused 1x1's exact zeros. The model's inputs are zero
     there, so they cannot show a block that drops the dead rows."""
     import torch
 
@@ -936,10 +955,10 @@ def block_unmasked_checks(blocks, levels, block_call, bitwise, failures):
                  "bitwise_repeat": bitwise(got, tc.tiled_block3d(*a, **kw)),
                  "unoccupied_" + ("exact_zeros" if blk.downsample else "relu_x"):
                      bool(torch.equal(rows, want))}
-        tol = CONV_REL_TOL * scale
+        tol = rel_tol * scale
         if not (err <= tol and all(extra.values())):
             failures.append(("tiled_block3d", i, "unmasked inputs", err, tol, extra))
-        emit({"phase": 1, "kernel": "tiled_block3d", "check": "unmasked_inputs",
+        emit({"phase": phase, "kernel": "tiled_block3d", "check": "unmasked_inputs",
               "block": i, "level": lvl, "residual": kind, "max_abs_err": err,
               "ref_max": scale, "tol": tol, "unoccupied_listed_cells": int(unocc.numel()),
               **extra})
@@ -1356,14 +1375,9 @@ def phase1(pipe, scene):
             s["vote_ms"] += extra["vote_ms"] * n
             s["convert_ms"] += extra["convert_ms"] * n
         if name in ROW_KERNELS:
-            lv = by_level[name].setdefault(extra["level"], {
-                "ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0, "fill_ms": 0.0,
-                "calls": 0})
-            lv["ms"] += ms * n
-            lv["device_ms"] += extra["device_ms"] * n
-            lv["bound_ms"] += bound_ms * n
-            lv["fill_ms"] += (fill_ms or 0.0) * n
-            lv["calls"] += n
+            add_level(by_level, name, extra["level"], n, ms=ms,
+                      device_ms=extra["device_ms"], bound_ms=bound_ms,
+                      fill_ms=fill_ms)
         emit({"phase": 1, "kernel": name, "config": [str(v) for v in key[1:]],
               "per_scene": n, "max_abs_err": err, "ref_max": scale,
               "tol": tol, "kernel_ms": ms, "fill_ms": fill_ms,
@@ -2854,13 +2868,16 @@ F32_REL_TOL = 1e-5
 F32_BACKBONE_TOL = 1e-4
 # the float32 rows: the wrappers whose float32 launches count apart
 F32_ROWS = ("tiled_conv3d", "tiled_conv3d_prefolded", "tiled_down2",
-            "tiled_up2", "tiled_up2_into")
+            "tiled_up2", "tiled_up2_into", "tiled_block3d")
 # one float32 pass of each path: the joint (47 convs, 4 downs, 4 ups) and
-# the nine categories (46 convs and the prefolded stem, 4 downs, 4 ups each)
+# the nine categories (46 convs and the prefolded stem, 4 downs, 4 ups
+# each); no path runs the fused block
 F32_JOINT = {"tiled_conv3d": 47, "tiled_conv3d_prefolded": 0,
-             "tiled_down2": 4, "tiled_up2": 4, "tiled_up2_into": 0}
+             "tiled_down2": 4, "tiled_up2": 4, "tiled_up2_into": 0,
+             "tiled_block3d": 0}
 F32_SEPARATE = {"tiled_conv3d": 9 * 46, "tiled_conv3d_prefolded": 9,
-                "tiled_down2": 36, "tiled_up2": 36, "tiled_up2_into": 0}
+                "tiled_down2": 36, "tiled_up2": 36, "tiled_up2_into": 0,
+                "tiled_block3d": 0}
 # the joint pass with up_impl="into": the ups into L1 and L0 write into
 # their skip's grid (row 7)
 F32_JOINT_INTO = {**F32_JOINT, "tiled_up2": 2, "tiled_up2_into": 2}
@@ -2868,12 +2885,17 @@ F32_JOINT_INTO = {**F32_JOINT, "tiled_up2": 2, "tiled_up2_into": 2}
 
 # the CUDA kernels of each float32 row
 F32_KERNELS = {
-    "tiled_conv3d": "compact_kernel, conv_rows_f32_kernel, dead_rows_kernel<float>",
+    "tiled_conv3d": "compact_kernel, conv_rows_f32_kernel, split_reduce_f32_kernel, "
+                    "dead_rows_kernel<float>",
     "tiled_conv3d_prefolded": "compact_kernel, conv_rows_f32_kernel (x taps)",
-    "tiled_down2": "compact_kernel, conv_rows_f32_kernel (down)",
+    "tiled_down2": "compact_kernel, conv_rows_f32_kernel (down), "
+                   "split_reduce_f32_kernel",
     "tiled_up2": "compact_kernel, up_rows_f32_kernel, skip_copy_kernel<float>",
     "tiled_up2_into": "compact_kernel, up_rows_f32_kernel (into), "
-                      "up_dead_kernel<float>"}
+                      "up_dead_kernel<float>",
+    "tiled_block3d": "compact_kernel (row map), conv_rows_f32_kernel (conv1 into "
+                     "the compact mid), conv_rows_f32_kernel (conv2 through the "
+                     "row map), split_reduce_f32_kernel, dead_rows_kernel<float>"}
 
 
 def read_f32():
@@ -2903,17 +2925,21 @@ def f32_unoccupied_zeros(name, got, a, kw):
 
 
 def phase_f32(scenes):
-    """Float32 grids through rows 1-3, 6 and 7 (tpu.conv_dtype=float32):
+    """Float32 grids through rows 1-3, 6, 7 and 9 (tpu.conv_dtype=float32):
     every configuration of the float32 joint path (default and
     up_impl="into") and the separate path's prefolded stem, recorded on
     scene 0, against its plain version (F32_REL_TOL of each output's
     peak), a repeat (bitwise) and exact zeros at its unoccupied listed
-    cells, timed as phase 1 times the bf16 rows; the unmasked checks at
-    float32; the float32 joint path (three scenes, default and
-    up_impl="into") and the separate evaluator (three scenes, nine
-    categories) with planted tails: exact float32 launch counts, no bf16
-    launch, per-stage ms (default routes), scenes/s and peak memory; the float32 dense backbone against the float32 sparse
-    one; eval_joint (three scans) and eval_separate (two) with
+    cells, timed as phase 1 times the bf16 rows and summed by level; the
+    unmasked checks at float32; the fused block on the recorded input of
+    each of the float32 joint pass's 23 BasicBlocks, as phase 1 holds the
+    bf16 block (its plain version within F32_REL_TOL, the two float32 convs
+    and a repeat bit for bit, launches_f32 exactly 23); the float32 joint
+    path (three scenes, default and up_impl="into") and the separate
+    evaluator (three scenes, nine categories) with planted tails: exact
+    float32 launch counts, no bf16 launch, per-stage ms (default routes),
+    scenes/s and peak memory; the float32 dense backbone against the
+    float32 sparse one; eval_joint (three scans) and eval_separate (two) with
     tpu.conv_dtype=float32 over the scenes written as a ScanNet tree:
     exact float32 launch counts, no bf16 launch, a finite mAP. Returns
     (summary by row, launches)."""
@@ -2961,6 +2987,7 @@ def phase_f32(scenes):
                    "operations": 0.0, "host_ms": 0.0, "device_ms": 0.0,
                    "fill_ms": 0.0 if n in FILLED else None}
                for n in F32_ROWS}
+    by_level = {n: {} for n in (*ROW_KERNELS, "tiled_block3d")}
     for key, r in records.items():
         name, a, kw = r["name"], r["args"], r["kw"]
         assert a[0].dtype == torch.float32, (key, a[0].dtype)
@@ -2999,6 +3026,8 @@ def phase_f32(scenes):
             s[k] += v * n
         if fill_ms is not None:
             s["fill_ms"] += fill_ms * n
+        add_level(by_level, name, extra["level"], n, ms=ms,
+                  device_ms=extra["device_ms"], bound_ms=bound_ms, fill_ms=fill_ms)
         emit({"phase": "f32", "kernel": name, "config": [str(v) for v in key[1:]],
               "per_scene": n, "max_abs_err": err, "ref_max": scale,
               "tol": F32_REL_TOL * scale, "kernel_ms": ms, "fill_ms": fill_ms,
@@ -3009,6 +3038,10 @@ def phase_f32(scenes):
     records.clear()
     occ_of.clear()
     torch.cuda.empty_cache()
+    phase1_blocks(pipe, args, summary["tiled_block3d"], levels, by_level,
+                  failures, rel_tol=F32_REL_TOL, phase="f32")
+    torch.cuda.empty_cache()
+    emit({"phase": "f32", "by_level": by_level})
     for s in summary.values():
         s["bound_by"] = "bytes" if s.pop("bytes") >= s.pop("operations") \
             else "operations"
@@ -3673,6 +3706,13 @@ def main() -> int:
             **{k: s[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms", "fill_ms",
                                  "host_ms", "device_ms")}})
+        if name == "tiled_block3d":  # no path runs it: the f32 phase's checks
+            kernels[-1]["launches"] = s["launches"]
+            kernels[-1]["launches_from"] = (
+                "phase f32: one check a BasicBlock of a float32 joint pass; "
+                "no path runs the fused block")
+            kernels[-1].update({k: s[k] for k in (
+                "two_conv_ms", "two_conv_device_ms", "two_conv_host_ms")})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,12 @@ modelled step by step in plain torch against both.
 
 Tolerance atol 2e-4, as tests/test_tiled_block.py holds the JAX kernel to
 its two-conv reference: float32 on both sides, other summation orders over
-27 taps x at most 24 channels, twice.
+27 taps x at most 24 channels, twice. The float32 block (the port's plain
+route, which the card's float32 kernel is held to) is also held to the JAX
+kernel within 1e-5 of the output's peak, the card's float32 tolerance.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -63,21 +67,58 @@ def _jax_block(x, occ_m, tiles, p, tile_shape, group):
         tile_shape=tile_shape, group=group, interpret=True)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_case(case, unmasked=False):
+    """The JAX kernel's output in interpret mode on CASES[case]'s inputs from
+    the ``rng`` fixture's seed (with ``unmasked``, x non-zero at every
+    interior cell), computed once for the tests below."""
+    tile_shape, group, cin, mid, with_rw = CASES[case]
+    rng = np.random.RandomState(0)
+    x, occ, cells, p = _inputs(rng, cin, mid, with_rw)
+    if unmasked:
+        x = rng.randn(*x.shape).astype(np.float32)
+    tiles = jtc.occupied_tiles(cells, DIMS, tile_shape, pad_multiple=group)
+    return np.asarray(_jax_block(x, _margin(occ), tiles, p, tile_shape,
+                                 group))[..., :mid]
+
+
 @pytest.mark.parametrize("tile_shape,group,cin,mid,with_rw", CASES)
 def test_block_matches_jax(rng, tile_shape, group, cin, mid, with_rw):
+    case = CASES.index((tile_shape, group, cin, mid, with_rw))
     x, occ, cells, p = _inputs(rng, cin, mid, with_rw)
     tiles = jtc.occupied_tiles(cells, DIMS, tile_shape, pad_multiple=group)
     occ_m = _margin(occ)
-    want = _jax_block(x, occ_m, tiles, p, tile_shape, group)
+    want = _jax_case(case)
     got = ttc.tiled_block3d(
         _t(_margin(x)), _t(p["w1"]), _t(p["w2"]), _t(tiles),
         tile_shape=tile_shape, occ=_t(occ_m),
         **{k: _t(v) for k, v in p.items() if k not in ("w1", "w2")})
     assert ttc.tiled_block3d.launches == 0  # CPU tensors take the plain path
     # the whole margined grid: zeros outside the listed tiles on both sides
-    np.testing.assert_allclose(got.numpy(), np.asarray(want)[..., :mid],
-                               atol=2e-4, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=0)
     assert np.abs(got.numpy()).max() > 0.1
+
+
+@pytest.mark.parametrize("case", [0, 1], ids=["identity", "fused_1x1"])
+def test_float32_block_matches_jax_at_the_f32_tolerance(rng, case):
+    """The block on float32 grids (the plain route, which the card's float32
+    kernel is held to within 1e-5 of each output's peak) against the JAX
+    kernel at float32 in interpret mode: within 1e-5 of the output's peak,
+    with the identity residual and with the fused 1x1."""
+    tile_shape, group, cin, mid, with_rw = CASES[case]
+    x, occ, cells, p = _inputs(rng, cin, mid, with_rw)
+    tiles = _t(jtc.occupied_tiles(cells, DIMS, tile_shape, pad_multiple=group))
+    xm = _t(_margin(x))
+    assert xm.dtype == torch.float32
+    got = ttc.tiled_block3d(
+        xm, _t(p["w1"]), _t(p["w2"]), tiles, tile_shape=tile_shape,
+        occ=_t(_margin(occ)),
+        **{k: _t(v) for k, v in p.items() if k not in ("w1", "w2")})
+    assert got.dtype == torch.float32
+    want = _jax_case(case)
+    peak = np.abs(want).max()
+    assert peak > 0.1
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * peak, rtol=0)
 
 
 @pytest.mark.parametrize("cin", [8, 12])
@@ -188,6 +229,7 @@ def test_block_data_flow_matches_jax_interpret(rng, tile_shape, group, cin,
     against the JAX kernel in interpret mode and against
     tiled_block3d_plain, atol 2e-4; with ``unmasked`` x is non-zero at
     every interior cell, so the dead rows carry relu(x)."""
+    case = CASES.index((tile_shape, group, cin, mid, with_rw))
     x, occ, cells, p = _inputs(rng, cin, mid, with_rw)
     if unmasked:
         x = rng.randn(*x.shape).astype(np.float32)
@@ -198,9 +240,8 @@ def test_block_data_flow_matches_jax_interpret(rng, tile_shape, group, cin,
                                             om.shape)] > 0).sum())
     order = torch.from_numpy(rng.permutation(n_live))
     got = _data_flow(xm, om, tm, tile_shape, p, order)
-    want = _jax_block(x, occ_m, tiles, p, tile_shape, group)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want)[..., :mid],
-                               atol=2e-4, rtol=0)
+    want = _jax_case(case, unmasked)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=0)
     plain = ttc.tiled_block3d_plain(
         xm, _t(p["w1"]), _t(p["w2"]), tm, tile_shape=tile_shape, occ=om,
         **{k: _t(v) for k, v in p.items() if k not in ("w1", "w2")})
@@ -213,10 +254,12 @@ def test_block_data_flow_matches_jax_interpret(rng, tile_shape, group, cin,
         assert dead.shape[0] > 0 and bool((rows > 0).any())
 
 
-@pytest.mark.parametrize("cin,mid,cout,fused,n_rows", [
-    (32, 32, 32, False, 339072), (96, 64, 64, True, 102400),
-    (256, 256, 256, False, 1792), (384, 256, 256, True, 14336),
-    (8, 8, 8, False, 64)])
+SPLIT_CASES = [(32, 32, 32, False, 339072), (96, 64, 64, True, 102400),
+               (256, 256, 256, False, 1792), (384, 256, 256, True, 14336),
+               (8, 8, 8, False, 64)]
+
+
+@pytest.mark.parametrize("cin,mid,cout,fused,n_rows", SPLIT_CASES)
 def test_block_splits_are_the_two_convs(cin, mid, cout, fused, n_rows):
     """The fused block's K splits are the ones the model's two tiled_conv3d
     calls take (so the card sums in their order), and its one scratch holds
@@ -229,3 +272,22 @@ def test_block_splits_are_the_two_convs(cin, mid, cout, fused, n_rows):
     assert (s1, s2) == (c1, c2)
     sizes = [0 if q is None else q.numel() for q in (p1, p2)]
     assert (0 if part is None else part.numel()) == max(sizes)
+
+
+@pytest.mark.parametrize("cin,mid,cout,fused,n_rows", SPLIT_CASES)
+def test_float32_block_splits_are_the_two_convs(cin, mid, cout, fused, n_rows):
+    """The float32 block (``park``: its kernel parks the fused 1x1's result
+    in the scratch, with one split too) takes the two float32 convs' K
+    splits, and its one scratch holds the larger of theirs: with one split
+    and the fused 1x1, the (n_rows, cout) slice it parks in."""
+    s1, s2, part = ttc._block_splits(cin, mid, cout, fused, n_rows, "cpu",
+                                     park=True)
+    c1, p1 = ttc._split_scratch(27 * ttc._cpad(cin) // ttc.K_CHUNK, n_rows,
+                                mid, 0, "cpu", park=True)
+    c2, p2 = ttc._split_scratch(27 * ttc._cpad(mid) // ttc.K_CHUNK, n_rows,
+                                cout, int(fused), "cpu", park=True)
+    assert (s1, s2) == (c1, c2)
+    sizes = [0 if q is None else q.numel() for q in (p1, p2)]
+    assert (0 if part is None else part.numel()) == max(sizes)
+    if fused:
+        assert part is not None and part.numel() >= n_rows * cout

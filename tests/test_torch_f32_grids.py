@@ -6,9 +6,10 @@
   they take the card's route up to the launch): a float32 grid
   reaches the ``<name>_f32_launch`` symbol with its argument list, a
   bfloat16 grid the ``<name>_launch`` one, each counted on its own counter
-  (``launches_f32``, ``launches``); float16 and float64 grids raise, and
-  the fused block (row 9), whose float32 instance is on no path, refuses
-  float32 on the card.
+  (``launches_f32``, ``launches``), every argument of the ctypes type its
+  signature names; float16 and float64 grids raise. The fused block (row 9)
+  dispatches the same way, and its float32 call takes the K splits of the
+  model's two float32 convs.
 - Both CLIs with tpu.conv_dtype=float32: every conv of the backbones gets
   float32 grids, and the detections equal the pipelines' on the same item
   (the tails decode planted rows; the backbones' rows are held bitwise)."""
@@ -50,8 +51,8 @@ def _occ(dims):
                        device="cpu")
 
 
-def _tiles():
-    return torch.empty(2, 3, dtype=torch.int32, device="cpu")
+def _tiles(n=2):
+    return torch.empty(n, 3, dtype=torch.int32, device="cpu")
 
 
 def _calls(dtype):
@@ -85,16 +86,30 @@ def _calls(dtype):
     ]
 
 
+class Launches(list):
+    """The launch symbols called; ``args``, their argument lists."""
+
+    def __init__(self):
+        super().__init__()
+        self.args = []
+
+
 @pytest.fixture
 def launched(monkeypatch):
-    """The launch symbols called, with their argument counts checked
-    against the ctypes signatures."""
-    names = []
+    """The launch symbols called, with their argument counts and types
+    checked against the ctypes signatures (a pointer: an int or None; an
+    int: an int)."""
+    names = Launches()
 
     def launcher(name):
         def launch(*args):
-            assert len(args) == len(tc._ARGTYPES[name]), name
+            types = tc._ARGTYPES[name]
+            assert len(args) == len(types), name
+            for i, (a, t) in enumerate(zip(args, types)):
+                ok = a is None or type(a) is int if t is tc._P else type(a) is int
+                assert ok, (name, i, a)
             names.append(name)
+            names.args.append(args)
             return 0
         return launch
 
@@ -105,6 +120,7 @@ def launched(monkeypatch):
         monkeypatch.setattr(fn, "launches", 0)
         monkeypatch.setattr(fn, "launches_f32", 0)
     monkeypatch.setattr(tc.tiled_block3d, "launches", 0)
+    monkeypatch.setattr(tc.tiled_block3d, "launches_f32", 0)
     return names
 
 
@@ -133,16 +149,33 @@ def test_card_route_refuses_other_dtypes(launched, dtype):
     assert launched == []
 
 
-def test_fused_block_takes_bfloat16_only_on_the_card(launched):
-    x = _grid(DIMS, 8, torch.float32)
-    kw = dict(tile_shape=(4, 4, 8), occ=_occ(DIMS),
-              **{k: torch.ones(8, device="cpu")
-                 for k in ("scale1", "bias1", "scale2", "bias2")})
+def test_fused_block_dispatches_on_the_grid_dtype(launched):
+    """Row 9's card route: a float32 grid reaches tiled_block3d_f32_launch,
+    a bfloat16 grid tiled_block3d_launch, each counted apart. A float32
+    block with the fused 1x1 over enough listed rows that the split scratch
+    caps its splits (s_max1 2, s_max2 1) passes the s_max that the model's
+    two float32 tiled_conv3d calls pass, so the card sums in their order."""
+    ch = {k: torch.ones(8, device="cpu") for k in ("scale1", "bias1", "scale2", "bias2")}
+    kw = dict(tile_shape=(4, 4, 8), occ=_occ(DIMS), **ch)
     w = torch.empty(27, 8, 8)
-    with pytest.raises(TypeError, match="float32 instance"):
-        tc.tiled_block3d(x, w, w, _tiles(), **kw)
-    tc.tiled_block3d(_grid(DIMS, 8, torch.bfloat16), w, w, _tiles(), **kw)
-    assert launched == ["tiled_block3d_launch"]
+    for dtype in (torch.float32, torch.bfloat16):
+        assert tc.tiled_block3d(_grid(DIMS, 8, dtype), w, w, _tiles(),
+                                **kw).dtype == dtype
+    assert launched == ["tiled_block3d_f32_launch", "tiled_block3d_launch"]
+    assert (tc.tiled_block3d.launches_f32, tc.tiled_block3d.launches) == (1, 1)
+
+    x, w1, rw = _grid(DIMS, 12, torch.float32), torch.empty(27, 12, 8), torch.empty(12, 8)
+    tiles = _tiles(12000)  # 1,536,000 listed rows
+    res = dict(res_w=rw, res_scale=torch.ones(8), res_bias=torch.ones(8))
+    tc.tiled_block3d(x, w1, w, tiles, **kw, **res)
+    conv = dict(tile_shape=(4, 4, 8), kernel_size=3, occ=kw["occ"], relu_out=True)
+    tc.tiled_conv3d(x, w1, tiles, scale=ch["scale1"], bias=ch["bias1"], **conv)
+    tc.tiled_conv3d(_grid(DIMS, 8, torch.float32), w, tiles, scale=ch["scale2"],
+                    bias=ch["bias2"], residual=x, **res, **conv)
+    assert launched[2:] == ["tiled_block3d_f32_launch"] + 2 * ["tiled_conv3d_f32_launch"]
+    block, conv1, conv2 = launched.args[2:]
+    assert block[-3:-1] == (2, 1)
+    assert block[-3:-1] == (conv1[-2], conv2[-2])
 
 
 @pytest.fixture
