@@ -61,7 +61,9 @@ class TPUConfig:
     # conv sites the JAX package routes through its scatter-dense engine;
     # the port runs the gather form at every site (train/steps.py)
     train_dense_levels: str = "stem"
-    # data-parallel mesh; only 1 x 1 is ported
+    # the trainers' data x model mesh; training runs 1 x 1 only
+    # (train/steps.py). Evaluation fans scenes out over torch.distributed
+    # ranks instead (parallel/scene_parallel.py; the CLIs under torchrun)
     mesh_data: int = 1
     mesh_model: int = 1
 

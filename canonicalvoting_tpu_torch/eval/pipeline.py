@@ -102,26 +102,38 @@ def _padded_rows(coords: np.ndarray, feats_raw: np.ndarray, cap: int):
 
 
 def prepare_scene_args(coords: np.ndarray, feats_raw: np.ndarray, *,
-                       res: float, cap_multiple: int, grid_multiple,
-                       device, backbone: str = "dense"):
+                       res: float, device, cap_multiple: int = 4096,
+                       grid_multiple=(64, 32, 128), backbone: str = "dense",
+                       cap: Optional[int] = None,
+                       grid_shape: Optional[tuple] = None,
+                       dense_dims: Optional[tuple] = None):
     """Host prep of one scene for ``backbone`` "dense" (:class:`SceneArgs`:
     padded rows, flat cell ids, tile lists) or "sparse"
-    (:class:`SparseSceneArgs`: the pyramid, uploaded once)."""
+    (:class:`SparseSceneArgs`: the pyramid, uploaded once). The row
+    capacity, vote grid shape and (dense) interior dims are the scene's
+    own, or ``cap`` (every pyramid level's, on the sparse backbone),
+    ``grid_shape`` and ``dense_dims`` where a run shares them over its
+    scenes (``parallel/scene_parallel.py``)."""
     if backbone == "sparse":
         return sparse_scene_host(coords, feats_raw, res=res,
                                  cap_multiple=cap_multiple,
-                                 grid_multiple=grid_multiple).upload(device)
+                                 grid_multiple=grid_multiple, cap=cap,
+                                 grid_shape=grid_shape).upload(device)
     if backbone != "dense":
         raise ValueError(f"backbone must be one of {BACKBONES}, got {backbone!r}")
     n = len(coords)
-    dims_w = (coords.max(0) - coords.min(0)).astype(np.int32) + 1
-    grid_shape = round_grid_shape(dims_w, grid_multiple)
-    cap = int(np.ceil(max(n, 1) / cap_multiple) * cap_multiple)
+    if grid_shape is None:
+        grid_shape = round_grid_shape(scene_extent(coords), grid_multiple)
+    if cap is None:
+        cap = int(np.ceil(max(n, 1) / cap_multiple) * cap_multiple)
+    if n > cap:
+        raise ValueError(f"{n} voxels exceed the capacity {cap}")
     feats, valid = _padded_rows(coords, feats_raw, cap)
     coords_p = np.zeros((cap, 3), np.int32)
     coords_p[:n] = coords[:, -3:]
     coords_w = coords_p.astype(np.float32) * res
-    base, dense_dims = dense_grid_geometry(coords)
+    base, own_dims = dense_grid_geometry(coords)
+    dense_dims = own_dims if dense_dims is None else tuple(dense_dims)
     flat = np.full((cap,), -1, np.int32)
     flat[:n] = dense_flat_ids(coords, base, dense_dims)
     plans = fit_plans(dense_dims)
@@ -171,21 +183,62 @@ class SparseSceneHost:
                                self.pyr.table_bytes())
 
 
+def scene_extent(coords: np.ndarray) -> np.ndarray:
+    """int32 (3,) voxel extent of a scene, the vote grid's dims before
+    rounding."""
+    return (coords.max(0) - coords.min(0)).astype(np.int32) + 1
+
+
 def sparse_scene_host(coords: np.ndarray, feats_raw: np.ndarray, *, res: float,
-                      cap_multiple: int, grid_multiple) -> SparseSceneHost:
+                      cap_multiple: int, grid_multiple,
+                      cap: Optional[int] = None,
+                      grid_shape: Optional[tuple] = None) -> SparseSceneHost:
     """The sparse branch of the JAX package's ``prepare_scene_args``
     (``eval/pipeline.py:149-161``) on the host: the pyramid of the scene's
     voxels (native coordinate manager), the padded rows, and the rows'
-    world coordinates with the pyramid's far-away padding."""
-    dims_w = (coords.max(0) - coords.min(0)).astype(np.int32) + 1
-    grid_shape = round_grid_shape(dims_w, grid_multiple)
+    world coordinates with the pyramid's far-away padding. ``cap`` fixes
+    every level's capacity (the JAX package's scene-parallel collate),
+    ``grid_shape`` the vote grid's."""
+    if grid_shape is None:
+        grid_shape = round_grid_shape(scene_extent(coords), grid_multiple)
+    spec = (PyramidSpec(capacities=None, cap_multiple=cap_multiple)
+            if cap is None else PyramidSpec(capacities=(cap,) * 5))
     t0 = time.perf_counter()
-    pyr = build_pyramid(batched_coordinates([coords]),
-                        PyramidSpec(capacities=None, cap_multiple=cap_multiple))
+    pyr = build_pyramid(batched_coordinates([coords]), spec)
     pyramid_ms = (time.perf_counter() - t0) * 1e3
     feats, _ = _padded_rows(coords, feats_raw, pyr.coords[0].shape[0])
     coords_w = pyr.coords[0][:, 1:].astype(np.float32) * res
     return SparseSceneHost(pyr, feats, coords_w, grid_shape, pyramid_ms)
+
+
+@torch.no_grad()
+def vote_and_peel(coords_w: torch.Tensor, xyz: torch.Tensor,
+                  scale: torch.Tensor, prob: torch.Tensor,
+                  class_pred: torch.Tensor, valid: torch.Tensor, *,
+                  res: float, num_rots: int, grid_shape: tuple,
+                  peel: PeelConfig, lazy_rot_scale: bool = True,
+                  hv_method: str = "auto") -> Dict[str, torch.Tensor]:
+    """Vote splat -> peel of one scene's sliced heads (``scale`` in
+    metres): the objectness splat with rot/scale sampled at the peeled
+    cells (``lazy_rot_scale``), or the 6-channel splat and the dense
+    rot/scale grids."""
+    corners = compute_corners(coords_w, valid)
+    corner = corners[0]
+    kw = dict(res=res, num_rots=num_rots, grid_shape=grid_shape,
+              corners=corners, valid=valid)
+    if not lazy_rot_scale:
+        go, gr, gs = hough_voting(coords_w, xyz, scale, prob, **kw)
+        return peel_boxes(go, coords_w, xyz, prob, class_pred, corner, peel,
+                          valid=valid, grid_rot=gr, grid_scale=gs)
+    go = hough_voting_obj(coords_w, xyz, scale, prob, method=hv_method, **kw)
+    dims = clipped_grid_dims(corners, res, grid_shape)
+
+    def rot_scale_fn(cand):
+        return vote_stats_at_cell(coords_w, xyz, scale, prob, corner, dims,
+                                  res, num_rots, cand, valid=valid)
+
+    return peel_boxes(go, coords_w, xyz, prob, class_pred, corner, peel,
+                      rot_scale_fn, valid=valid)
 
 
 @dataclass
@@ -272,32 +325,15 @@ class DetectionPipeline:
     def tail(self, out: torch.Tensor, coords_w: torch.Tensor,
              valid: torch.Tensor, grid_shape: tuple,
              peel: Optional[PeelConfig] = None) -> Dict[str, torch.Tensor]:
-        """Head slice -> vote splat -> peel: the objectness splat with
-        rot/scale sampled at the peeled cells (lazy), or the 6-channel splat
-        and the dense rot/scale grids."""
+        """Head slice -> :func:`vote_and_peel` with the pipeline's tail."""
         xyz, scale, class_pred, prob = slice_joint_heads(out)
         if self.log_scale:
             scale = torch.exp(scale)
-        peel = peel or self.peel
-        corners = compute_corners(coords_w, valid)
-        corner = corners[0]
-        kw = dict(res=self.res, num_rots=self.num_rots, grid_shape=grid_shape,
-                  corners=corners, valid=valid)
-        if not self.lazy_rot_scale:
-            go, gr, gs = hough_voting(coords_w, xyz, scale, prob, **kw)
-            return peel_boxes(go, coords_w, xyz, prob, class_pred, corner,
-                              peel, valid=valid, grid_rot=gr, grid_scale=gs)
-        go = hough_voting_obj(coords_w, xyz, scale, prob, method=self.hv_method,
-                              **kw)
-        dims = clipped_grid_dims(corners, self.res, grid_shape)
-
-        def rot_scale_fn(cand):
-            return vote_stats_at_cell(coords_w, xyz, scale, prob, corner, dims,
-                                      self.res, self.num_rots, cand,
-                                      valid=valid)
-
-        return peel_boxes(go, coords_w, xyz, prob, class_pred, corner, peel,
-                          rot_scale_fn, valid=valid)
+        return vote_and_peel(coords_w, xyz, scale, prob, class_pred, valid,
+                             res=self.res, num_rots=self.num_rots,
+                             grid_shape=grid_shape, peel=peel or self.peel,
+                             lazy_rot_scale=self.lazy_rot_scale,
+                             hv_method=self.hv_method)
 
     def run_scene(self, args: SceneArgs, peel: Optional[PeelConfig] = None):
         out = self.run_backbone(args)

@@ -13,7 +13,17 @@ synthetic scenes (the JAX package's ``eval_joint.py --synthetic`` recipe).
 ``checkpoint=`` loads an upstream ``.pth`` or a JAX package ``.ckpt``,
 otherwise the weights are random. ``--config=<yaml>`` and ``key=value``
 overrides set the keys of ``config.py``. It runs on the GPU; ``--cpu`` asks
-for the CPU. ``--no-mesh`` is accepted: one card runs every scene.
+for the CPU. ``trace_dir=<dir>`` records the evaluation with
+``torch.profiler`` and writes a Chrome trace into ``<dir>``, one a rank.
+
+Under torchrun (``WORLD_SIZE`` > 1), or in a process group of more than one
+rank that the caller initialized, the scenes fan out over the ranks
+(``parallel/scene_parallel.py``): each rank reads and evaluates scenes
+``s % D``, with the single-process path's tail, and rank 0 reads the ground
+truth, scores mAP and logs; the other ranks log nothing and return an empty
+dict. ``--no-mesh`` keeps one process evaluating every scene.
+
+  torchrun --nproc_per_node 4 -m canonicalvoting_tpu_torch.eval_joint ...
 """
 
 from __future__ import annotations
@@ -58,18 +68,22 @@ def main(argv) -> dict:
     from canonicalvoting_tpu_torch.eval.pipeline import DetectionPipeline
     from canonicalvoting_tpu_torch.metrics.ap import compute_map
     from canonicalvoting_tpu_torch.models import DenseMinkUNet34C
+    from canonicalvoting_tpu_torch.parallel.mesh import fan_out_mesh
+    from canonicalvoting_tpu_torch.utils.profiling import device_trace
     from canonicalvoting_tpu_torch.utils.weights import load_weights
 
     scenenn = "--scenenn" in argv
     synthetic = "--synthetic" in argv
+    no_mesh = "--no-mesh" in argv
     device = "cpu" if "--cpu" in argv else "cuda"
-    # --no-mesh: one card runs every scene, there is nothing to fan out
     argv = [a for a in argv if not a.startswith("--scenenn")
             and a not in ("--synthetic", "--no-mesh", "--cpu")]
-    checkpoint, rest = None, []
+    checkpoint, trace_dir, rest = None, None, []
     for a in argv:
         if a.startswith("checkpoint="):
             checkpoint = a.split("=", 1)[1]
+        elif a.startswith("trace_dir="):
+            trace_dir = a.split("=", 1)[1]
         else:
             rest.append(a)
     yaml_path, overrides, _ = parse_cli(rest)
@@ -83,36 +97,50 @@ def main(argv) -> dict:
         logger.warning("no checkpoint given: evaluating random weights")
     else:
         load_weights(model, checkpoint)
-    pipe = DetectionPipeline(
-        model=model, res=cfg.scannet_res, num_rots=120,
-        log_scale=cfg.log_scale, use_xyz=cfg.use_xyz,
-        peel=PeelConfig(res=cfg.scannet_res, max_boxes=cfg.tpu.max_boxes),
-        device=device)
+    peel = PeelConfig(res=cfg.scannet_res, max_boxes=cfg.tpu.max_boxes)
     if synthetic:
-        items, gts = synthetic_scenes(cfg.scannet_res)
-        scenes, gt_for = iter(items), gts.__getitem__
+        scenes, gts = synthetic_scenes(cfg.scannet_res)
+        gt_for = gts.__getitem__
     else:
         from canonicalvoting_tpu_torch.data.scannet import (
             SceneNNDataset, ScanNetXYZProbMultiDataset)
 
-        ds = (SceneNNDataset if scenenn else ScanNetXYZProbMultiDataset)(
+        scenes = (SceneNNDataset if scenenn else ScanNetXYZProbMultiDataset)(
             cfg, training=False, augment=False)
-        scenes = (ds[i][:3] for i in range(len(ds)))
         gt_dir = (os.path.join(cfg.data.scene_nn_root, "results_gt")
                   if scenenn else cfg.data.gt_path)
 
         def gt_for(id_scan):
             return load_gt_scene(gt_dir, id_scan, scenenn=scenenn)
 
-    pred, gt = {}, {}
-    for id_scan, coords, feats_raw in scenes:
-        out = pipe.run_scene_with_retry(pipe.prepare_quantized(coords, feats_raw))
-        dets = pipe.postprocess(out)
+    with fan_out_mesh(device, no_mesh) as mesh, device_trace(trace_dir):
+        if mesh is None:
+            pipe = DetectionPipeline(
+                model=model, res=cfg.scannet_res, num_rots=120,
+                log_scale=cfg.log_scale, use_xyz=cfg.use_xyz, peel=peel,
+                device=device)
+            pred = {}
+            for i in range(len(scenes)):
+                id_scan, coords, feats_raw = scenes[i][:3]
+                pred[id_scan] = pipe.postprocess(pipe.run_scene_with_retry(
+                    pipe.prepare_quantized(coords, feats_raw)))
+        else:
+            from canonicalvoting_tpu_torch.parallel.scene_parallel import (
+                evaluate_scenes_sharded)
+
+            # the dense backbone and the lazy tail of the pipeline above
+            pred = evaluate_scenes_sharded(
+                model, None, scenes, mesh=mesh, res=cfg.scannet_res,
+                num_rots=120, log_scale=cfg.log_scale, peel=peel,
+                backbone="dense", lazy_rot_scale=True)
+            if mesh.rank != 0:
+                return {}
+    gt = {}
+    for id_scan, dets in pred.items():
         if scenenn:
-            dets = [d for d in dets if d[0] in SCENENN_CLASSES]
-        pred[id_scan] = dets
+            pred[id_scan] = [d for d in dets if d[0] in SCENENN_CLASSES]
         gt[id_scan] = gt_for(id_scan)
-        logger.info("%s: %d detections", id_scan, len(dets))
+        logger.info("%s: %d detections", id_scan, len(pred[id_scan]))
     results = {}
     for thresh in (0.25, 0.5):
         logger.info("thresh: %s", thresh)

@@ -234,6 +234,13 @@ def hough_backward_obj(points, xyz, scale, obj, corner, dims, res: float,
     return d_xyz, d_scale, d_obj
 
 
+def normalized_grids(raw: torch.Tensor):
+    """(grid_obj, grid_rot, grid_scale) of the 6-channel splat's float32
+    sums (..., 6): rot and scale over ``grid_obj + 1e-7``."""
+    denom = raw[..., 0:1] + 1e-7
+    return raw[..., 0], raw[..., 1:3] / denom, raw[..., 3:6] / denom
+
+
 class _HoughVoting(torch.autograd.Function):
     """The 6-channel splat forward; the objectness splat's transpose
     backward (:func:`hough_backward_obj`)."""
@@ -246,8 +253,7 @@ class _HoughVoting(torch.autograd.Function):
                         num_rots=num_rots, grid_shape=grid_shape, valid=valid)
         ctx.save_for_backward(points, xyz, scale, obj, corners, dims, valid)
         ctx.res, ctx.num_rots, ctx.grid_shape = res, num_rots, grid_shape
-        denom = raw[..., 0:1] + 1e-7
-        return raw[..., 0], raw[..., 1:3] / denom, raw[..., 3:6] / denom
+        return normalized_grids(raw)
 
     @staticmethod
     def backward(ctx, g_obj, _g_rot, _g_scale):

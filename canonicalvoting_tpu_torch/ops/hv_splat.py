@@ -9,7 +9,9 @@ or of several in one launch (the separate evaluator's categories);
 function through (y plane, x bucket) windows. The kernels are in
 ``csrc/hv_splat.cu``; its header says what bounds them on the H100, and
 how they make the sums deterministic (64-bit fixed-point integer
-atomics).
+atomics). ``hv_splat6_sums`` hands back the 6-channel splat's sums before
+their conversion (``sums_to_float``), for a reduction over ranks
+(``parallel/hv_sharded.py``).
 
 The wrappers run the kernel for CUDA tensors and the plain version for CPU
 tensors, and raise for anything else. ``<wrapper>.launches`` counts kernel
@@ -89,29 +91,32 @@ def clip_dims(dims: torch.Tensor, grid_shape) -> torch.Tensor:
 
 
 def hv_splat_plain(points, xyz, scale, obj, corner, dims, res, *, num_rots,
-                   grid_shape, valid=None, channels=1):
+                   grid_shape, valid=None, channels=1, sums=False):
     """Scatter-add of every in-range vote's 8 float32 trilinear weights (times
     ``[1, cos, sin, sx, sy, sz]`` with 6 channels, each product in float32),
     summed in float64 so the reference carries no summation error of its
-    own (a hot cell collects ~1e5 votes). (gx, gy, gz) with one channel,
-    (gx, gy, gz, 6) with six; with a leading category axis on xyz, scale
-    and obj, one such grid per category, stacked (a loop over the
+    own (a hot cell collects ~1e5 votes), then rounded to float32 (with
+    ``sums``: the float64 sums, 6 channels only). (gx, gy, gz) with one
+    channel, (gx, gy, gz, 6) with six; with a leading category axis on xyz,
+    scale and obj, one such grid per category, stacked (a loop over the
     categories)."""
     if channels not in (1, 6):
         raise ValueError(f"channels must be 1 or 6, got {channels}")
     if obj.dim() == 2:
         return torch.stack([_splat_plain(points, xyz[c], scale[c], obj[c],
                                          corner, dims, res, num_rots,
-                                         grid_shape, valid, channels)
+                                         grid_shape, valid, channels,
+                                         sums=sums)
                             for c in range(obj.shape[0])])
     return _splat_plain(points, xyz, scale, obj, corner, dims, res, num_rots,
-                        grid_shape, valid, channels)
+                        grid_shape, valid, channels, sums=sums)
 
 
 def _splat_plain(points, xyz, scale, obj, corner, dims, res, num_rots,
-                 grid_shape, valid, channels, x_window=None):
-    """hv_splat_plain's sums; ``x_window`` ((N,), (N,)) int64 keeps only the
-    corners whose x cell lies in the point's [lo, hi)."""
+                 grid_shape, valid, channels, x_window=None, sums=False):
+    """hv_splat_plain's grid, or with ``sums`` its float64 sums (gx, gy,
+    gz, channels) before the conversion; ``x_window`` ((N,), (N,)) int64
+    keeps only the corners whose x cell lies in the point's [lo, hi)."""
     gx, gy, gz = grid_shape
     dev = points.device
     cosv, sinv = rotation_table(num_rots, dev)
@@ -160,7 +165,10 @@ def _splat_plain(points, xyz, scale, obj, corner, dims, res, num_rots,
                 keep = (xcell >= lo) & (xcell < hi)
                 idx, w = idx[keep], w[keep]
             grid.index_add_(0, idx, w.double())
-    grid = grid.float().reshape(gx, gy, gz, channels)
+    grid = grid.reshape(gx, gy, gz, channels)
+    if sums:
+        return grid
+    grid = grid.float()
     return grid[..., 0] if channels == 1 else grid
 
 
@@ -238,16 +246,37 @@ def _splat(points, xyz, scale, obj, corner, dims, res, num_rots,
                 x_pad=window[1], **kw)
         return hv_splat_plain(points, xyz, scale, obj, corner, dims, res,
                               channels=channels, **kw)
+    return sums_to_float(_card_sums(points, xyz, scale, obj, corner, dims,
+                                    res, num_rots, grid_shape, valid,
+                                    channels, window))
+
+
+def _card_sums(points, xyz, scale, obj, corner, dims, res, num_rots,
+               grid_shape, valid, channels, window=None):
+    """The vote kernel's int64 fixed-point sums (C?, gx, gy, gz, channels)
+    in a scratch it zeroes; counts the wrapper's launch."""
     f, v, d, tables = _kernel_args(points, xyz, scale, obj, corner, dims,
                                    valid, num_rots, grid_shape)
     shape = tuple(obj.shape[:-1]) + tuple(grid_shape) + (channels,)
     acc = torch.zeros(shape, dtype=torch.int64, device=points.device)
-    out = torch.empty(shape, dtype=torch.float32, device=points.device)
     _votes(acc, f, v, d, tables, res, num_rots, grid_shape, channels,
            (0, 0) if window is None else window)
-    _fixed_to_float(acc, out)
     (hv_splat_windowed if window is not None
      else hv_splat6 if channels == 6 else hv_splat).launches += 1
+    return acc
+
+
+def sums_to_float(sums: torch.Tensor) -> torch.Tensor:
+    """float32 grid of :func:`hv_splat6_sums`' sums (or of a sum of
+    them): the fixed point's conversion kernel on the card, a rounding of
+    the float64 sums on the CPU."""
+    if sums.dtype == torch.float64 and sums.device.type == "cpu":
+        return sums.float()
+    if sums.dtype != torch.int64 or not sums.is_cuda:
+        raise ValueError(f"sums must be int64 on the card or float64 on the "
+                         f"CPU, got {sums.dtype} on {sums.device}")
+    out = torch.empty(sums.shape, dtype=torch.float32, device=sums.device)
+    _fixed_to_float(sums, out)
     return out
 
 
@@ -286,6 +315,28 @@ def hv_splat6(points: torch.Tensor, xyz: torch.Tensor, scale: torch.Tensor,
 
 
 hv_splat6.launches = 0
+
+
+def hv_splat6_sums(points: torch.Tensor, xyz: torch.Tensor,
+                   scale: torch.Tensor, obj: torch.Tensor,
+                   corner: torch.Tensor, dims: torch.Tensor, res: float, *,
+                   num_rots: int, grid_shape: Tuple[int, int, int],
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`hv_splat6`'s sums before their conversion to float32: on the
+    card the vote kernel's int64 fixed point (2^-32 a unit; the launch
+    counts as hv_splat6's), for CPU tensors the plain version's float64
+    sums; (gx, gy, gz, 6), or (C, gx, gy, gz, 6) with a category axis.
+    Sums of several calls over parts of the points (an all-reduce over
+    ranks) convert with :func:`sums_to_float`; on the card integer sums do
+    not depend on their order, so that grid is bitwise hv_splat6's over
+    all the points."""
+    if _route(points, xyz, scale, obj, corner, dims, valid,
+              categories=True) == "plain":
+        return hv_splat_plain(points, xyz, scale, obj, corner, dims, res,
+                              num_rots=num_rots, grid_shape=grid_shape,
+                              valid=valid, channels=6, sums=True)
+    return _card_sums(points, xyz, scale, obj, corner, dims, res, num_rots,
+                      grid_shape, valid, 6)
 
 
 def window_keys(points, xyz, scale, corner, dims, res, *, grid_shape,

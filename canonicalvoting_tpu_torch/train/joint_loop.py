@@ -46,6 +46,7 @@ from canonicalvoting_tpu_torch.train.steps import (
     check_ported_routes, create_train_state, create_train_state_dense,
     make_joint_train_step, train_backbone, train_microbatch)
 from canonicalvoting_tpu_torch.utils.meters import AverageMeter
+from canonicalvoting_tpu_torch.utils.metrics_log import MetricsLogger
 
 logger = logging.getLogger(__name__)
 
@@ -55,8 +56,10 @@ def train_epochs(cfg, state, loader, step_fn, workdir: str, eval_every: int,
     """The epoch loop both trainers share: resume from the newest
     checkpoint of ``workdir``, then per epoch the scheduled learning rate
     and BN momentum, one step a batch, and every ``eval_every`` epochs a
-    checkpoint and ``validate(state)``. Returns (state, the last
-    validation's result or None)."""
+    checkpoint and ``validate(state)``. Each epoch's row goes to
+    ``workdir/train.{csv,jsonl}`` and each validation's table at IoU t to
+    ``workdir/val_iou<t>.{csv,jsonl}`` (``utils/metrics_log.py``). Returns
+    (state, the last validation's result or None)."""
     start_epoch = cfg.start_epoch
     ckpt = latest_checkpoint(workdir)
     if ckpt is not None:
@@ -65,6 +68,7 @@ def train_epochs(cfg, state, loader, step_fn, workdir: str, eval_every: int,
         logger.info("%sresumed from %s (epoch %d)", tag, ckpt, saved_epoch)
     meter = AverageMeter()
     ret = None
+    train_log = MetricsLogger(workdir, "train")
     for epoch in range(start_epoch, max_epoch + 1):
         lr = lr_for_epoch(epoch, cfg.opt.learning_rate, cfg.lr_decay_steps,
                           cfg.lr_decay_rates)
@@ -83,10 +87,15 @@ def train_epochs(cfg, state, loader, step_fn, workdir: str, eval_every: int,
                               "seconds": seconds})
         logger.info("%sepoch %d: loss=%.4f (%.1fs, lr=%.2e, bn_mom=%.3f)",
                     tag, epoch, meter.avg, seconds, lr, mom)
+        train_log.log(epoch, {**state.history[-1], "lr": lr,
+                              "bn_momentum": mom})
         if epoch % eval_every == 0:
             save_checkpoint(os.path.join(workdir, f"epoch{epoch}.ckpt"),
                             state, epoch)
             ret = validate(state)
+            for thresh, table in ret.items():
+                MetricsLogger(workdir, f"val_iou{thresh}").log_map_table(
+                    epoch, table, thresh)
     return state, ret
 
 

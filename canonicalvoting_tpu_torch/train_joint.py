@@ -8,7 +8,9 @@ Hydra-style overrides set the keys of ``config.py``: ``scannet_res=0.03
 opt.learning_rate=1e-3 ...`` (upstream README.md:73-78); ``--config=<yaml>``
 reads a file first. Checkpoints and the auto-resume go to ``workdir=<dir>``
 (default ``outputs/<category>``, ``outputs/synthetic_joint`` with
-``--synthetic``). It trains on the GPU; ``--cpu`` asks for the CPU.
+``--synthetic``), with each epoch's row in ``train.{csv,jsonl}`` and each
+validation's mAP table in ``val_iou<t>.{csv,jsonl}``. It trains on the
+GPU; ``--cpu`` asks for the CPU.
 """
 
 from __future__ import annotations

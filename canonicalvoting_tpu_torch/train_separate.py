@@ -7,8 +7,9 @@ Usage:
   python -m canonicalvoting_tpu_torch.train_separate --synthetic         # synthetic run
 
 Overrides, ``--config=<yaml>`` and ``--cpu`` as ``train_joint``; each
-category's checkpoints go to ``workdir=<dir>/<category>`` (default
-``multirun``, ``multirun/synthetic`` with ``--synthetic``).
+category's checkpoints and metrics files (as ``train_joint``'s) go to
+``workdir=<dir>/<category>`` (default ``multirun``, ``multirun/synthetic``
+with ``--synthetic``).
 """
 
 from __future__ import annotations

@@ -128,6 +128,19 @@ to the step without it (gradients, running statistics updated once, peak
 memory) and runs one epoch of each loop with tpu.train_remat=true. The hough_backward phase holds the Hough backward on the card to
 its CPU route at the joint scene's configuration, times it and checks it
 for host syncs.
+The parallel phase (last) runs the port's multi-device serving over
+torch.distributed: on one rank of an NCCL group, the joint fan-out
+(parallel/scene_parallel.py, the 6-channel tail, planted head rows) over
+the three scenes bit for bit the single-process DetectionPipeline at the
+run's shared shapes with the same launches, and the point-sharded vote
+splat of scene 0 bit for bit hough_voting; then on two ranks that share
+the card over gloo (spawned), the sharded splat of scene 0's 61,440 rows
+(the int64 grid reduced through the host, its all-reduce timed), the joint
+fan-out (rank 0 scenes 0 and 2, rank 1 scene 1), the separate fan-out over
+two scenes and eval_joint.main fanned out over a ScanNet tree of the three
+scenes: detections bit for bit the single-process pipelines' and CLI's,
+the CLI's mAP, each rank's launches, scenes/s, phase timers and peak
+memory. Two ranks on one card measure no speedup.
 
 The last two lines are the kernels' summary (the nine bf16 rows, then the
 six float32 rows as <name>_f32) and the status line. The script
@@ -3603,6 +3616,450 @@ def phase_hough_backward(pipe, scenes):
     assert function_equal, "the Function's gradients differ from the call's"
 
 
+# ---------------------------------------------------------------------------
+# the parallel phase: scene-parallel evaluation and point-sharded voting over
+# torch.distributed ranks
+
+PARALLEL_DIR = "build/parallel"
+# timed all-reduces of the 6-channel int64 vote grid between the two ranks
+REDUCE_REPS = 3
+
+
+def sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def planted_heads(joint=None, separate=None, record=None):
+    """The pipelines' backbones run (and count their launches); the tails
+    decode the planted head rows (host arrays) of the scene with as many
+    voxels, ``joint`` (cap, 64) and ``separate`` (C, cap, 8) by voxel
+    count. ``record`` (a dict) gets the backbones' own rows, as host
+    arrays by voxel count under "joint" and "separate". Restored on
+    exit."""
+    import torch
+
+    from canonicalvoting_tpu_torch.eval.pipeline import DetectionPipeline
+    from canonicalvoting_tpu_torch.eval.separate import (
+        SeparateDetectionPipeline)
+
+    run_backbone = DetectionPipeline.run_backbone
+    backbones = SeparateDetectionPipeline.backbones
+
+    def rows(table, pipe, args, own, kind):
+        n = int(args.valid.sum())
+        if record is not None:
+            record.setdefault(kind, {})[n] = own.cpu().numpy()
+        return torch.as_tensor(table[n], device=pipe.device)
+
+    def joint_backbone(self, args):
+        return rows(joint, self, args, run_backbone(self, args), "joint")
+
+    def separate_backbones(self, args, shared=None):
+        return rows(separate, self, args, backbones(self, args, shared),
+                    "separate")
+
+    with patched(DetectionPipeline, run_backbone=joint_backbone), \
+            patched(SeparateDetectionPipeline, backbones=separate_backbones):
+        yield
+
+
+@contextlib.contextmanager
+def recorded_map(rec):
+    """compute_map records what it is handed in ``rec``; restored on exit."""
+    import canonicalvoting_tpu_torch.metrics.ap as ap
+
+    compute_map = ap.compute_map
+
+    def record(pred, gt, **kw):
+        rec.append(pred)
+        return compute_map(pred, gt, **kw)
+
+    with patched(ap, compute_map=record):
+        yield rec
+
+
+@contextlib.contextmanager
+def tail_lazy(pipe, lazy: bool):
+    old = pipe.lazy_rot_scale
+    pipe.lazy_rot_scale = lazy
+    try:
+        yield pipe
+    finally:
+        pipe.lazy_rot_scale = old
+
+
+def vote_inputs(args, rows):
+    """(points, xyz, scale, obj, corners, valid) of the joint tail's
+    6-channel splat on planted head rows."""
+    import torch
+
+    from canonicalvoting_tpu_torch.eval.pipeline import slice_joint_heads
+    from canonicalvoting_tpu_torch.ops.hough_voting import compute_corners
+
+    xyz, scale, _, prob = slice_joint_heads(rows)
+    return (args.coords_w, xyz, torch.exp(scale), prob,
+            compute_corners(args.coords_w, args.valid), args.valid)
+
+
+def path_launches(stats):
+    """The kernels' launches summed over the ranks' stats."""
+    return {n: sum(st["launches"][n] for st in stats) for n in SOURCES}
+
+
+def detections_equal(got, want) -> bool:
+    return list(got) == list(want) and all(
+        same_detections(got[i], want[i]) for i in want)
+
+
+def row_digests(record):
+    """SHA-1 of each recorded backbone output (planted_heads' record)."""
+    import hashlib
+
+    return {kind: {n: hashlib.sha1(a.tobytes()).hexdigest()
+                   for n, a in rows.items()} for kind, rows in record.items()}
+
+
+def rows_differ(got, want):
+    """The largest absolute difference of two recorded backbone outputs
+    over their valid rows (the first ``n``) and the largest absolute value
+    of ``want``'s, by voxel count: 0.0 where bitwise equal."""
+    import numpy as np
+
+    return {n: {"max_abs": float(np.abs(got[n][:n].astype(np.float64)
+                                        - want[n][:n]).max()),
+                "peak": float(np.abs(want[n][:n]).max())} for n in want}
+
+
+def parallel_rank(job):
+    """One of the parallel phase's two ranks (spawned by
+    ``parallel.launch.run_ranks``; it imports the port only): the sharded
+    vote splat of scene 0, the joint fan-out over the three scenes, the
+    separate fan-out over two and eval_joint.main fanned out over the
+    tree. Returns what rank 0 checks and prints."""
+    import torch
+    import torch.distributed as dist
+
+    from canonicalvoting_tpu_torch import eval_joint
+    from canonicalvoting_tpu_torch.models.dense_unet import DenseMinkUNet
+    from canonicalvoting_tpu_torch.ops.hough_voting import hough_voting
+    from canonicalvoting_tpu_torch.parallel import scene_parallel as sp
+    from canonicalvoting_tpu_torch.parallel.hv_sharded import (
+        hough_voting_sharded)
+    from canonicalvoting_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_grad_enabled(False)
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh(data=2, device=dev)
+    out = {"rank": mesh.rank}
+
+    # point-sharded voting: each rank splats half the rows, one all-reduce
+    # of the int64 grid
+    hv = {k: torch.as_tensor(v).to(dev) for k, v in job["hv"].items()}
+    kw = dict(res=RES, num_rots=NUM_ROTS, grid_shape=job["grid_shape"])
+    got = hough_voting_sharded(hv["points"], hv["xyz"], hv["scale"],
+                               hv["obj"], hv["corners"], mesh=mesh,
+                               valid=hv["valid"], **kw)
+    if mesh.rank == 0:
+        want = hough_voting(hv["points"], hv["xyz"], hv["scale"], hv["obj"],
+                            corners=hv["corners"], valid=hv["valid"], **kw)
+        out["hv_equal"] = all(torch.equal(a, b) for a, b in zip(got, want))
+    sums = torch.zeros(tuple(job["grid_shape"]) + (6,), dtype=torch.int64,
+                       device=dev)
+    dist.all_reduce(sums)  # warm-up
+    sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(REDUCE_REPS):
+        dist.all_reduce(sums)
+    sync(dev)
+    out["reduce_ms"] = (time.perf_counter() - t0) * 1e3 / REDUCE_REPS
+    out["reduce_bytes"] = sums.numel() * sums.element_size()
+    del got, sums
+    if mesh.rank == 0:
+        del want
+
+    def timed(name, fn):
+        sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        out[name + "_call_s"] = time.perf_counter() - t0
+        return res
+
+    model = DenseMinkUNet(**job["joint_cfg"])
+    model.load_state_dict(job["joint_sd"])
+    plan = DenseMinkUNet(**job["sep_cfg"])
+    stats, sep_stats, rec = [], [], []
+    rows, cli_rows = {}, {}
+    with planted_heads(job["joint_rows"], job["sep_rows"], rows):
+        out["joint"] = timed("joint", lambda: sp.evaluate_scenes_sharded(
+            model, None, job["items"], mesh=mesh, res=RES, num_rots=NUM_ROTS,
+            peel=job["peel"], backbone="dense", stats=stats))
+        out["separate"] = timed("separate", lambda: (
+            sp.evaluate_scenes_sharded_separate(
+                plan, job["sep_stacked"], job["items"][:N_SEPARATE_SCENES],
+                job["categories"], mesh=mesh, res=RES, num_rots=NUM_ROTS,
+                peel=job["sep_peel"], stats=sep_stats)))
+    with planted_heads(job["joint_rows"], record=cli_rows):
+        before = sp.launch_counts()
+        with recorded_map(rec):
+            out["cli"] = timed("cli", lambda: eval_joint.main(job["cli_argv"]))
+        after = sp.launch_counts()
+    out.update(stats=stats, sep_stats=sep_stats, cli_pred=rec[0] if rec else None,
+               cli_launches={n: after[n] - before[n] for n in SOURCES},
+               rows=row_digests(rows), cli_rows=cli_rows.get("joint", {}))
+    return out
+
+
+def phase_parallel(pipe, sep, scenes, card):
+    """Scene-parallel evaluation and point-sharded voting on the card. (a)
+    One rank of an NCCL group: the joint fan-out over the three scenes
+    (planted head rows, the 6-channel tail) bit for bit the single-process
+    DetectionPipeline at the run's shared shapes, with the same launches,
+    and the sharded vote splat of scene 0 bit for bit hough_voting (an
+    int64 all-reduce and an all_gather_object through NCCL). (b) Two ranks
+    sharing the card over gloo: the sharded splat of scene 0's 61,440
+    rows bit for bit hough_voting (the int64 grid crosses the host), the
+    joint fan-out (rank 0: scenes 0 and 2, rank 1: scene 1) and the
+    separate fan-out over two scenes bit for bit the single-process
+    pipelines, each rank's launches, and eval_joint.main fanned out over a
+    ScanNet tree of the three scenes with the single-process CLI's
+    detections and mAP. The tails decode planted rows, so the backbones'
+    own rows are checked apart: on every rank (one NCCL rank, two gloo
+    ranks) bit for bit the single-process backbone's at the run's shared
+    row cap and dense dims, and the fanned-out CLI's rows (shared shapes)
+    bit for bit the single-process CLI's (each scene's own; their largest
+    difference printed). Returns the fan-outs' launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from canonicalvoting_tpu_torch import eval_joint
+    from canonicalvoting_tpu_torch.data.synthetic_tree import write_scannet_tree
+    from canonicalvoting_tpu_torch.ops.hough_voting import hough_voting
+    from canonicalvoting_tpu_torch.parallel import scene_parallel as sp
+    from canonicalvoting_tpu_torch.parallel.hv_sharded import (
+        hough_voting_sharded)
+    from canonicalvoting_tpu_torch.parallel.launch import run_ranks
+    from canonicalvoting_tpu_torch.parallel.mesh import make_mesh
+
+    ids = [f"scene{i:04d}_00" for i in range(len(scenes))]
+    items = [(i, *quantize(s)) for i, s in zip(ids, scenes)]
+    n_sep = N_SEPARATE_SCENES
+    device = "cuda:0" if DEVICE == "cuda" else DEVICE  # every rank's
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    store = os.path.abspath(os.path.join(PARALLEL_DIR, "store_one"))
+    if os.path.exists(store):
+        os.remove(store)
+    # NCCL on the card (gloo where chip_smoke is rehearsed on the CPU)
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(device=device)
+        shapes, sep_shapes = (sp.shared_shapes(
+            mesh, [c for _, c, _ in items[:n]], cap_multiple=pipe.cap_multiple,
+            grid_multiple=pipe.grid_multiple, dense=True)
+            for n in (len(items), n_sep))
+        args = sp.collate_eval_scenes_dense(
+            [(c, f) for _, c, f in items], shapes["cap"], shapes["dense_dims"],
+            grid_shape=shapes["grid_shape"], res=RES, device=DEVICE)
+        sargs = sp.collate_eval_scenes_dense(
+            [(c, f) for _, c, f in items[:n_sep]], sep_shapes["cap"],
+            sep_shapes["dense_dims"], grid_shape=sep_shapes["grid_shape"],
+            res=RES, device=DEVICE)
+        joint_rows = {int(a.valid.sum()): planted_rows(s, a).cpu().numpy()
+                      for s, a in zip(scenes, args)}
+        sep_rows = {int(a.valid.sum()): separate_rows(s, a, len(sep.categories))
+                    for s, a in zip(scenes, sargs)}
+        assert len(joint_rows) == len(scenes), "voxel counts must differ"
+        rec = {}
+        with planted_heads(joint_rows, sep_rows, rec), \
+                tail_lazy(pipe, False), tail_lazy(sep, False):
+            # the single-process references at the shared shapes, and
+            # their backbones' rows
+            reset_counters()
+            want = {i: pipe.postprocess(pipe.run_scene_with_retry(a))
+                    for i, a in zip(ids, args)}
+            want_launches = read_counters()
+            reset_counters()
+            sep_want = {i: sep.postprocess(sep.run_scene_with_retry(a))
+                        for i, a in zip(ids, sargs)}
+            sep_want_launches = read_counters()
+            want_rows, sep_want_rows = rec.pop("joint"), rec.pop("separate")
+            # (a) the fan-out on one rank
+            one_stats = []
+            sync(DEVICE)
+            reset_counters()
+            t0 = time.perf_counter()
+            one = sp.evaluate_scenes_sharded(
+                pipe.model, None, items, mesh=mesh, res=RES,
+                num_rots=NUM_ROTS, peel=pipe.peel, backbone="dense",
+                stats=one_stats)
+            sync(DEVICE)
+            one_s = time.perf_counter() - t0
+            one_launches = read_counters()
+            one_rows = rec.pop("joint")
+        vin = vote_inputs(args[0], torch.as_tensor(
+            joint_rows[int(args[0].valid.sum())], device=DEVICE))
+        kw = dict(res=RES, num_rots=NUM_ROTS, grid_shape=shapes["grid_shape"])
+        hv_one = hough_voting_sharded(*vin[:5], mesh=mesh, valid=vin[5], **kw)
+        hv_want = hough_voting(*vin[:4], corners=vin[4], valid=vin[5], **kw)
+        hv_one_equal = all(torch.equal(a, b) for a, b in zip(hv_one, hv_want))
+        del hv_one, hv_want
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two ranks on the one card
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        overrides = write_scannet_tree(root, scenes, ids) + [f"scannet_res={RES}"]
+        if DEVICE == "cpu":
+            overrides.append("--cpu")
+        cli_rec, cli_own = [], {}
+        with planted_heads(joint_rows, record=cli_own), recorded_map(cli_rec):
+            cli_want = eval_joint.main(overrides)
+        cli_own = cli_own["joint"]  # each scene at its own shapes
+        job = {
+            "device": device, "grid_shape": shapes["grid_shape"],
+            "hv": {k: v.cpu() for k, v in zip(
+                ("points", "xyz", "scale", "obj", "corners", "valid"), vin)},
+            "items": items, "peel": pipe.peel, "joint_rows": joint_rows,
+            "joint_cfg": pipe.model.config(),
+            "joint_sd": {k: v.cpu() for k, v in pipe.model.state_dict().items()},
+            "sep_cfg": sep.plan.config(), "sep_peel": sep.peel,
+            "sep_stacked": {k: v.cpu() for k, v in sep.stacked.items()},
+            "sep_rows": sep_rows, "categories": list(sep.categories),
+            "cli_argv": overrides}
+        del vin
+        t0 = time.perf_counter()
+        ranks = run_ranks([functools.partial(parallel_rank, job)], 2,
+                          os.path.join(PARALLEL_DIR, "two"))
+        two_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0, r1 = (r[0] for r in ranks)
+    # the backbones' rows on the ranks against the single-process rows at
+    # the run's shared shapes (SHA-1); the fanned-out CLI's rows (shared
+    # shapes) against the single-process CLI's (each scene's own shapes)
+    want_digests = row_digests({"joint": want_rows,
+                                "separate": sep_want_rows})
+    rank_rows = {kind: {**r0["rows"].get(kind, {}), **r1["rows"].get(kind, {})}
+                 for kind in ("joint", "separate")}
+    rows_equal = {"one_rank_nccl": all(np_equal(one_rows[n], want_rows[n])
+                                       for n in want_rows),
+                  "joint": rank_rows["joint"] == want_digests["joint"],
+                  "separate": rank_rows["separate"] == want_digests["separate"]}
+    own_vs_shared = rows_differ({**r0["cli_rows"], **r1["cli_rows"]}, cli_own)
+    rows_equal["cli_shared_vs_own"] = all(d["max_abs"] == 0.0
+                                          for d in own_vs_shared.values())
+    stats = r0["stats"]
+    sep_stats = r0["sep_stats"]
+    joint_two = path_launches(stats)
+    sep_two = path_launches(sep_stats)
+    cli_two = {n: r0["cli_launches"][n] + r1["cli_launches"][n] for n in SOURCES}
+
+    def busy_s(st):
+        return sum(row["total_s"] for row in st["timer"].values())
+
+    def scenes_per_s(st):
+        return {"rank": st["rank"], "scenes": st["scenes"],
+                "scenes_per_s": len(st["scenes"]) / busy_s(st)}
+
+    emit({"phase": "parallel", "card": card,
+          "one_rank_nccl": {
+              "scenes_per_s": len(items) / one_s, "launches": one_launches,
+              "detections_equal": detections_equal(one, want),
+              "launches_equal": one_launches == want_launches,
+              "hv_bitwise_equal": hv_one_equal, "timer": one_stats[0]["timer"]},
+          "two_ranks_share_one_card": {
+              "spawn_and_run_s": two_s,
+              # each call builds its pipeline in each rank
+              "joint_call_scenes_per_s": len(items) / r0["joint_call_s"],
+              "separate_call_scenes_per_s": n_sep / r0["separate_call_s"],
+              "cli_call_s": r0["cli_call_s"],
+              # the scenes over the slower rank's timed phases
+              "total_scenes_per_s": len(items) / max(map(busy_s, stats)),
+              "separate_total_scenes_per_s": n_sep / max(map(busy_s,
+                                                             sep_stats)),
+              "per_rank": [scenes_per_s(st) for st in stats],
+              "separate_per_rank": [scenes_per_s(st) for st in sep_stats],
+              "timers": [st["timer"] for st in stats],
+              "separate_timers": [st["timer"] for st in sep_stats],
+              # each fan-out's peak, its statistics reset at its start
+              "peak_mem_gib": [st["peak_mem_bytes"] / 2 ** 30
+                               if st["peak_mem_bytes"] is not None else None
+                               for st in stats],
+              "separate_peak_mem_gib": [
+                  st["peak_mem_bytes"] / 2 ** 30
+                  if st["peak_mem_bytes"] is not None else None
+                  for st in sep_stats],
+              "backbone_rows_bitwise_equal": rows_equal,
+              # the single-process CLI runs each scene at its own row cap
+              # and dense dims, the fanned-out one at the run's shared ones
+              "cli_rows_shared_vs_own_max_abs": own_vs_shared,
+              "hv_bitwise_equal": r0["hv_equal"],
+              "hv_reduce_ms": [r0["reduce_ms"], r1["reduce_ms"]],
+              "hv_reduce_bytes": r0["reduce_bytes"],
+              "launches": {"joint": [st["launches"] for st in stats],
+                           "separate": [st["launches"] for st in sep_stats],
+                           "cli": [r0["cli_launches"], r1["cli_launches"]]},
+              "joint_equal": detections_equal(r0["joint"], want),
+              "separate_equal": detections_equal(r0["separate"], sep_want),
+              "cli_mAP": {str(t): float(d["mAP"]) for t, d in r0["cli"].items()},
+              "cli_single_mAP": {str(t): float(d["mAP"])
+                                 for t, d in cli_want.items()}}})
+    assert all(rows_equal.values()), rows_equal
+    assert len(one_stats) == 1 and one_stats[0]["scenes"] == ids
+    assert detections_equal(one, want), "one-rank fan-out detections differ"
+    assert one_launches == want_launches, (one_launches, want_launches)
+    for n, per in PER_SCENE.items():
+        assert one_launches[n] == per * len(items), (n, one_launches)
+    assert one_launches["hv_splat6"] >= len(items) and \
+        one_launches["hv_splat"] == 0, one_launches
+    assert hv_one_equal, "one-rank sharded vote grids differ from hough_voting"
+    assert r0["hv_equal"], "two-rank sharded vote grids differ from hough_voting"
+    assert [st["scenes"] for st in stats] == [ids[0::2], ids[1::2]], stats
+    assert [st["scenes"] for st in sep_stats] == [ids[:1], ids[1:n_sep]]
+    for r in (r0, r1):
+        assert detections_equal(r["joint"], want), "joint fan-out differs"
+        assert detections_equal(r["separate"], sep_want), \
+            "separate fan-out differs"
+    assert joint_two == {n: want_launches[n] for n in SOURCES}, \
+        (joint_two, want_launches)
+    for st in stats:  # each rank's own launches
+        for n, per in PER_SCENE.items():
+            assert st["launches"][n] == per * len(st["scenes"]), (n, st)
+    assert sep_two == {n: sep_want_launches[n] for n in SOURCES}, \
+        (sep_two, sep_want_launches)
+    for st in sep_stats:
+        for n, per in SEPARATE_PER_SCENE.items():
+            if n in ("hv_splat", "hv_splat6"):
+                continue  # the non-lazy tail: one 6-channel splat a tail
+            assert st["launches"][n] == per * len(st["scenes"]), (n, st)
+        assert st["launches"]["hv_splat6"] >= len(st["scenes"]) and \
+            st["launches"]["hv_splat"] == 0, st
+    assert r1["cli"] == {} and r1["cli_pred"] is None
+    assert detections_equal(r0["cli_pred"], cli_rec[0]), "CLI fan-out differs"
+    assert {t: float(d["mAP"]) for t, d in r0["cli"].items()} == \
+        {t: float(d["mAP"]) for t, d in cli_want.items()}, "CLI mAP differs"
+    for n, per in PER_SCENE.items():
+        assert cli_two[n] == per * len(items), (n, cli_two)
+    return {n: one_launches[n] + joint_two[n] + sep_two[n] + cli_two[n]
+            for n in SOURCES}
+
+
 def main() -> int:
     try:
         import torch
@@ -3645,7 +4102,8 @@ def main() -> int:
               ("train", lambda: phase_train(scenes)),
               ("train_dense", lambda: phase_train_dense(scenes)),
               ("train_remat", lambda: phase_train_remat(scenes)),
-              ("hough_backward", lambda: phase_hough_backward(pipe, scenes)))
+              ("hough_backward", lambda: phase_hough_backward(pipe, scenes)),
+              ("parallel", lambda: phase_parallel(pipe, sep(), scenes, smi)))
     for name, run in phases:
         try:
             done[name] = run()
@@ -3659,13 +4117,14 @@ def main() -> int:
     # phase, the non-lazy phase, the variants phase, the two CLIs of the
     # scannet phase, the sparse phase's joint and separate passes, the
     # sampler's batch, the training loops' validations, with and without
-    # remat), each counted from 0; the fused block, which no path runs,
-    # counts phase 1's checks
+    # remat, the parallel phase's fan-outs on one rank and on two), each
+    # counted from 0; the fused block, which no path runs, counts phase 1's
+    # checks
     summary = done["phase1"]
     launches = {n: done["phase2"][0][n] + done["separate"][n]
                 + done["nonlazy"][n] + done["variants"][n] + done["scannet"][n]
                 + done["sparse"][n] + done["sunrgbd"][0][n] + done["train"][n]
-                + done["train_remat"][n]
+                + done["train_remat"][n] + done["parallel"][n]
                 for n in SOURCES}
     # row 5's largest error includes the sampler's configuration
     summary["hv_splat6"]["max_abs_err"] = max(

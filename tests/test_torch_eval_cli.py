@@ -12,6 +12,7 @@ but the tails decode planted rows (the scene's own boxes), so that the
 detections are not empty.
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -174,6 +175,35 @@ def test_eval_joint_matches_pipeline(tmp_path, scene, narrow, planted,
         assert np.array_equal(b, wb)
     if source == "scenenn":  # SceneNN's "television" is Scan2CAD's display
         assert "display" in [c for c, _ in gt[id_scan]]
+
+
+@pytest.mark.parametrize("cli", ["eval_joint", "eval_separate"])
+def test_trace_dir_traces_the_evaluation(tmp_path, scene, narrow, planted,
+                                         cli):
+    """``trace_dir=`` runs the evaluation under ``utils.profiling.
+    device_trace(<dir>)``: every backbone pass inside it (device_trace's
+    own file is held by test_torch_parallel.py; a stand-in that records
+    here keeps the profiler's cost out)."""
+    import canonicalvoting_tpu_torch.utils.profiling as profiling
+
+    inside = []
+
+    @contextlib.contextmanager
+    def device_trace(logdir):
+        inside.append((logdir, len(planted)))
+        yield None
+        inside.append((logdir, len(planted)))
+
+    monkeypatch = pytest.MonkeyPatch()
+    monkeypatch.setattr(profiling, "device_trace", device_trace)
+    try:
+        overrides = write_scannet_tree(str(tmp_path / "tree"), [scene])
+        {"eval_joint": eval_joint, "eval_separate": eval_separate}[cli].main(
+            overrides + ARGS + [f"trace_dir={tmp_path}/trace"])
+    finally:
+        monkeypatch.undo()
+    trace = str(tmp_path / "trace")
+    assert inside == [(trace, 0), (trace, len(planted))] and planted
 
 
 def test_eval_separate_matches_pipeline(tmp_path, scene, narrow, planted,

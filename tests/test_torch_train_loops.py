@@ -8,6 +8,7 @@ synthetic scenes and over a ScanNet-format tree (the datasets' training
 branch, augmentation on), the dense training route and block remat through
 both loops, and mesh training, which is not ported, raising."""
 
+import json
 import math
 import os
 
@@ -73,6 +74,12 @@ def joint_data():
     return items, gts
 
 
+# each epoch's row and each validation's table (utils/metrics_log.py)
+METRICS_FILES = [f"{name}.{ext}" for name in ("train", "val_iou0.25",
+                                              "val_iou0.5")
+                 for ext in ("csv", "jsonl")]
+
+
 def test_joint_loop_validates_checkpoints_and_resumes(tmp_path, joint_data):
     items, gts = joint_data
     cfg = load_config(None, BASE + ["max_epoch=1"])
@@ -82,7 +89,8 @@ def test_joint_loop_validates_checkpoints_and_resumes(tmp_path, joint_data):
         gt_lookup=gts.get, eval_every=1, cap_multiple=256,
         model=_narrow(3, JOINT_OUT), device="cpu")
     assert state.step == 2  # epochs 0 and 1, one batch each
-    assert sorted(os.listdir(workdir)) == ["epoch0.ckpt", "epoch1.ckpt"]
+    assert sorted(os.listdir(workdir)) == ["epoch0.ckpt", "epoch1.ckpt",
+                                           *METRICS_FILES]
     _finite_map(ret)
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     # a second call resumes after epoch 1 and trains epoch 2 only
@@ -161,7 +169,8 @@ def test_separate_loop_validates_one_category(tmp_path):
         cfg, ListDataset(items), ListDataset(items[:1]),
         workdir=str(tmp_path), gt_lookup=_gts(2, "s").get, eval_every=1,
         max_epoch=0, cap_multiple=256, model=_narrow(3, 8), device="cpu")
-    assert state.step == 1 and os.listdir(tmp_path) == ["epoch0.ckpt"]
+    assert state.step == 1 and sorted(os.listdir(tmp_path)) == [
+        "epoch0.ckpt", *METRICS_FILES]
     _finite_map(ret)
 
 
@@ -250,6 +259,14 @@ def test_cli_synthetic_runs(tmp_path, narrow_clis, monkeypatch):
                                    f"workdir={tmp_path}/j"] + BASE)
     assert state.step == 1 and state.model.conv0p1s1.kernel.device.type == "cpu"
     _finite_map(ret)
+    # the epoch's row and the validation's tables (utils/metrics_log.py)
+    with open(f"{tmp_path}/j/train.jsonl") as f:
+        (row,) = [json.loads(line) for line in f]
+    assert row["step"] == 0 and row["loss"] == state.history[0]["loss"]
+    for t in (0.25, 0.5):
+        with open(f"{tmp_path}/j/val_iou{t}.jsonl") as f:
+            (row,) = [json.loads(line) for line in f]
+        assert row[f"iou{t}/mAP"] == float(ret[t]["mAP"])
     out = train_separate.main(["--synthetic", "--cpu", "max_epoch=0", "-m",
                                "category=03001627,04379243",
                                f"workdir={tmp_path}/s"] + BASE)
