@@ -51,19 +51,19 @@ class TPUConfig:
     point_buckets: tuple = (4096, 16384, 32768, 65536, 131072, 262144)
     # objects a separate-training batch holds for the symmetry loss
     max_objects: int = 64
-    # "auto" and "gather": the gather-form sparse backbone; "dense" (the
-    # masked dense twin) is not ported
+    # "auto" and "gather": the gather-form sparse backbone; "dense": its
+    # masked dense twin (train/steps.py)
     train_backbone: str = "auto"
-    # the JAX package's block remat; the port keeps every activation
+    # block remat in the training backward (models/norm.py:remat)
     train_remat: bool = False
     # scenes a gradient-accumulation microbatch; 0: the whole batch
     train_microbatch: int = 0
-    # conv sites the JAX package routes through its scatter-dense engine;
-    # the port runs the gather form at every site (train/steps.py)
+    # conv sites of the gather backbone run through the scatter-dense
+    # engine (ops/scatter_conv.py; "" none, "all", or "stem,0,down1,up2")
     train_dense_levels: str = "stem"
-    # the trainers' data x model mesh; training runs 1 x 1 only
-    # (train/steps.py). Evaluation fans scenes out over torch.distributed
-    # ranks instead (parallel/scene_parallel.py; the CLIs under torchrun)
+    # the trainers' data x model mesh (parallel/data_parallel.py; one
+    # process a device, under torchrun). Evaluation fans scenes out over
+    # torch.distributed ranks instead (parallel/scene_parallel.py)
     mesh_data: int = 1
     mesh_model: int = 1
 

@@ -95,6 +95,32 @@ def dense_flat_ids_batched(coords_list, dims=None):
     return np.concatenate(flats), dims, [g[0] for g in geo]
 
 
+def pyramid_level_flat_ids(coords_levels, scene_bases, dims0):
+    """Each pyramid level's stacked flat cell ids for the scatter-dense
+    engine (``ops/scatter_conv.py``), as the JAX package's
+    ``pyramid_level_flat_ids``: ``coords_levels`` the pyramid's (cap_l, 4)
+    batched coords [b, x, y, z] at raw scale, ``scene_bases`` (B, 3) the
+    scenes' bases (:func:`dense_grid_geometry`), ``dims0`` the shared L0
+    interior dims. Level l's grids are UNMARGINED (B, dims0 >> l); ids
+    index the stacked B * cells space, -1 for padding or out-of-grid rows.
+    Returns (flat ids a level (cap_l,) int32, dims a level)."""
+    bases = np.asarray(scene_bases, np.int64)
+    B = len(bases)
+    flat_levels, dims_levels = [], []
+    for lvl, c in enumerate(coords_levels):
+        d = tuple(int(x) >> lvl for x in dims0)
+        b = c[:, 0].astype(np.int64)
+        ok_b = (b >= 0) & (b < B)
+        cell = (c[:, 1:].astype(np.int64) >> lvl) - (bases[np.clip(b, 0, B - 1)]
+                                                     >> lvl)
+        ok = ok_b & np.all((cell >= 0) & (cell < np.asarray(d)), axis=1)
+        flat = ((cell[:, 0] * d[1] + cell[:, 1]) * d[2] + cell[:, 2]
+                + b * (d[0] * d[1] * d[2]))
+        flat_levels.append(np.where(ok, flat, -1).astype(np.int32))
+        dims_levels.append(d)
+    return flat_levels, dims_levels
+
+
 def level_tiles(coords: np.ndarray, base: np.ndarray,
                 dims: Tuple[int, int, int], tile_plan=None, stem_plan=None,
                 conv_plan=None, trans_plan=None):

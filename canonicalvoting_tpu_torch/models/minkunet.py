@@ -22,6 +22,15 @@ are not zero, and callers mask them with the valid rows. With ``remat``
 (``tpu.train_remat``) a training forward recomputes each residual block in
 the backward (``models/norm.py:remat``), as the JAX package's ``nn.remat``
 does; outputs, gradients and running statistics are the same.
+
+``dense_plans`` (``train/steps.py:build_dense_plans``, the
+``tpu.train_dense_levels`` sites) routes the listed conv sites through the
+scatter-dense engine (``ops/scatter_conv.py``) at the JAX package's sites:
+"stem", ("conv", level) for the block convs of a level, ("down", i) and
+("up", i). The outputs are the gather form's. Mesh training's sync-BN and
+column-parallel convs are set on the modules (``models/norm.py:
+sync_batch_norm``, ``parallel/data_parallel.py:shard_train_state``); the
+tree, and so the state dict, stays as it is.
 """
 
 from __future__ import annotations
@@ -93,39 +102,44 @@ class MinkUNetBase(nn.Module):
         return x
 
     def forward(self, feats: torch.Tensor, pyramid: Dict[str, object],
-                train: bool = False, bn_momentum: float = 0.1):
+                train: bool = False, bn_momentum: float = 0.1,
+                dense_plans: Optional[Dict] = None):
         """``feats`` (N0, in_channels); ``pyramid`` the tables of
-        ``PyramidArrays.to``. (N0, out_channels) float32 rows, and with
-        ``return_endpoints`` first the five endpoints."""
-        P, mom = pyramid, bn_momentum
+        ``PyramidArrays.to``; ``dense_plans`` {site: ``DensePlan``}. (N0,
+        out_channels) float32 rows, and with ``return_endpoints`` first the
+        five endpoints."""
+        P, mom, dp = pyramid, bn_momentum, dense_plans or {}
         nv = P["nvalid"]
         endpoints = []
-        x = self.conv0p1s1(feats, P["nbr_stem"])
+        x = self.conv0p1s1(feats, dp.get("stem", P["nbr_stem"]))
         out_p1 = torch.relu(self.bn0(x, nv[0], train, mom))
         skips = []
         x = out_p1
         for i in range(4):
-            x = getattr(self, f"conv{i + 1}p{1 << i}s2")(x, P["nbr_down"][i])
+            x = getattr(self, f"conv{i + 1}p{1 << i}s2")(
+                x, dp.get(("down", i), P["nbr_down"][i]))
             if self.return_endpoints and i == 3:
                 # the stride-16 encoder conv output, before its BN: the
                 # first of 34CF's five endpoints (upstream minkunet.py:273)
                 endpoints.append(x)
             x = torch.relu(getattr(self, f"bn{i + 1}")(x, nv[i + 1], train, mom))
             x = self._blocks(f"block{i + 1}", self.layers[i], x,
-                             P["nbr_conv"][i + 1], nv[i + 1], train, mom)
+                             dp.get(("conv", i + 1), P["nbr_conv"][i + 1]),
+                             nv[i + 1], train, mom)
             skips.append(x)
         x = skips[3]
         for d in range(4):
             lvl = 3 - d
             x_up = getattr(self, f"convtr{4 + d}p{1 << (lvl + 1)}s2")(
-                x, P["nbr_up"][lvl])
+                x, dp.get(("up", lvl), P["nbr_up"][lvl]))
             if self.return_endpoints:
                 endpoints.append(x_up)
             x_up = torch.relu(getattr(self, f"bntr{4 + d}")(x_up, nv[lvl],
                                                             train, mom))
             skip = skips[lvl - 1] if lvl >= 1 else out_p1
             x = self._blocks(f"block{5 + d}", self.layers[4 + d],
-                             torch.cat([x_up, skip], -1), P["nbr_conv"][lvl],
+                             torch.cat([x_up, skip], -1),
+                             dp.get(("conv", lvl), P["nbr_conv"][lvl]),
                              nv[lvl], train, mom)
         out = self.final(x, None)
         return (endpoints, out) if self.return_endpoints else out

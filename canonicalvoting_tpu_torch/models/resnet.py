@@ -10,6 +10,15 @@ loads one state dict into this model or into ``DenseMinkUNet``.
 
 Kernels are initialised Kaiming-normal over fan-out (``K * Cout``), drawn
 from the caller's ``torch.Generator`` (the global generator when None).
+
+A conv given a ``DensePlan`` in place of its neighbor table runs through
+the scatter-dense engine (``ops/scatter_conv.py``), as the JAX package's
+``SparseConv`` does. Under mesh training a conv whose kernel is split
+over the model group (``parallel/data_parallel.py:shard_train_state``
+sets ``tp_mesh`` and leaves ``kernel`` this rank's column slice) runs
+column-parallel (``ops/sparse_conv.py:column_parallel_conv``), the bias,
+replicated, added after; the mesh path collates no dense plans, as the
+JAX package's does not.
 """
 
 from __future__ import annotations
@@ -20,8 +29,9 @@ import torch
 from torch import nn
 
 from canonicalvoting_tpu_torch.models.norm import MaskedBatchNorm
+from canonicalvoting_tpu_torch.ops.scatter_conv import DensePlan, scatter_dense_conv
 from canonicalvoting_tpu_torch.ops.sparse_conv import (
-    sparse_conv1x1, sparse_conv_apply)
+    column_parallel_conv, sparse_conv1x1, sparse_conv_apply)
 
 
 def kernel_init(shape, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -41,12 +51,25 @@ class SparseConv(nn.Module):
         self.kernel = nn.Parameter(kernel_init(
             (kernel_volume, in_channels, out_channels), generator))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
+        self.tp_mesh = None  # the mesh of a column-split kernel
 
-    def forward(self, x: torch.Tensor, nbr: Optional[torch.Tensor]) -> torch.Tensor:
+    def _conv(self, x, nbr, bias):
         if self.kernel_volume == 1:
-            return sparse_conv1x1(x, self.kernel, self.bias, self.compute_dtype)
-        return sparse_conv_apply(x, nbr, self.kernel, self.bias,
-                                 self.compute_dtype)
+            return sparse_conv1x1(x, self.kernel, bias, self.compute_dtype)
+        if isinstance(nbr, DensePlan):
+            return scatter_dense_conv(x, self.kernel, bias, nbr,
+                                      self.compute_dtype)
+        return sparse_conv_apply(x, nbr, self.kernel, bias, self.compute_dtype)
+
+    def forward(self, x: torch.Tensor, nbr) -> torch.Tensor:
+        if self.tp_mesh is None:
+            return self._conv(x, nbr, self.bias)
+        if isinstance(nbr, DensePlan):
+            raise ValueError("a column-parallel conv runs the gather form; "
+                             "mesh training takes no dense plans")
+        out = column_parallel_conv(x, None if self.kernel_volume == 1 else nbr,
+                                   self.kernel, self.tp_mesh, self.compute_dtype)
+        return out if self.bias is None else out + self.bias
 
 
 class _Block(nn.Module):

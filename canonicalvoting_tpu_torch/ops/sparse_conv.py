@@ -35,6 +35,15 @@ cuBLAS into float32 (``torch.mm(..., out_dtype=torch.float32)``), as a TPU
 multiplies a float32 by a bfloat16 operand at its default precision. On
 the card ``index_add_`` adds with atomics, so its gradients are not
 bitwise repeatable.
+
+Under mesh training a conv whose kernel is split over the model ranks'
+output columns runs :class:`ColumnGatherMatmul` (:func:`column_parallel_conv`):
+this rank's product with its column slice, the columns all-gathered in the
+forward. Every model rank then computes the same loss, so the backward
+takes this rank's slice of the output gradient for the slice's ``dW``, and
+the whole output gradient with the kernel all-gathered (a few MB) for
+``d_feats``: the input gradient of one rank's conv, the same on every
+model rank, with no activation-sized reduction over the model group.
 """
 
 from __future__ import annotations
@@ -43,6 +52,9 @@ import contextlib
 from typing import Optional
 
 import torch
+
+from canonicalvoting_tpu_torch.parallel.collectives import (
+    all_gather_columns, column_slice)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -166,6 +178,62 @@ class CastMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             db = grad_matmul(a.t(), dy).to(b.dtype)
         return da, db
+
+
+class ColumnGatherMatmul(torch.autograd.Function):
+    """:class:`GatherMatmul` (``idx`` given) or :class:`CastMatmul`
+    (``idx`` None: the 1x1) with ``w`` this rank's column slice of the
+    kernel over ``mesh``'s model group: gather forward (the output's
+    columns), slice backward (``dW`` from this rank's columns of the
+    output gradient; ``d_feats`` from all of it and the gathered kernel)."""
+
+    @staticmethod
+    def forward(ctx, feats, idx, w, mesh):
+        dt = w.dtype
+        if idx is None:
+            src = feats.to(dt)
+            out = matmul_f32(src, w)
+        else:
+            src = torch.cat([feats.to(dt), feats.new_zeros(1, feats.shape[1],
+                                                           dtype=dt)])
+            out = matmul_f32(gather_rows(src, idx, w.shape[0]), w)
+        ctx.save_for_backward(src, idx, w)
+        ctx.mesh, ctx.feats_dtype = mesh, feats.dtype
+        return all_gather_columns(out, mesh)
+
+    @staticmethod
+    def backward(ctx, dy):
+        src, idx, w = ctx.saved_tensors
+        dy = dy.float()
+        mine = column_slice(dy, ctx.mesh).contiguous()
+        d_feats = dw = None
+        if ctx.needs_input_grad[0]:
+            w_all = all_gather_columns(w.float(), ctx.mesh).to(w.dtype)
+            if idx is None:
+                d_feats = grad_matmul(dy, w_all.t()).to(w.dtype)
+            else:
+                d_feats, _ = gather_matmul_grads(src, idx, w_all, dy,
+                                                 need_w=False)
+            d_feats = d_feats.to(ctx.feats_dtype)
+        if ctx.needs_input_grad[2]:
+            if idx is None:
+                dw = grad_matmul(src.t(), mine).to(w.dtype)
+            else:
+                _, dw = gather_matmul_grads(src, idx, w, mine, need_feats=False)
+        return d_feats, None, dw, None
+
+
+def column_parallel_conv(feats: torch.Tensor, nbr: Optional[torch.Tensor],
+                         weights: torch.Tensor, mesh,
+                         compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """(N_out, Cout) float32 of a conv whose ``weights`` (K, Cin, Cout /
+    model) are this rank's columns (:class:`ColumnGatherMatmul`); ``nbr``
+    None for a 1x1."""
+    dt = compute_dtype_of(compute_dtype)
+    k, cin, cout = weights.shape
+    idx = None if nbr is None else conv_index(nbr, feats.shape[0])
+    return ColumnGatherMatmul.apply(feats, idx, weights.to(dt).reshape(k * cin, cout),
+                                    mesh)
 
 
 def conv_index(nbr: torch.Tensor, n_in: int) -> torch.Tensor:

@@ -13,6 +13,14 @@ Nothing here picks a backend or a device behind the caller's back: a mesh
 computes on this rank's current CUDA device, whatever the group's backend,
 unless the caller passes another device (``device="cpu"`` for the CPU).
 Two ranks on one card are a gloo group that the caller initializes.
+
+Ranks are laid out as the JAX package lays out its devices,
+``reshape(data, model)``: rank ``d * model + m`` holds coordinates ``(d,
+m)``. Training (``parallel/data_parallel.py``) reduces over a rank's data
+group (the ranks with its ``m``: sync-BN and the gradient average) and its
+model group (the ranks with its ``d``: the column-parallel convs), which
+:func:`make_mesh` builds with ``dist.new_group`` when they are neither a
+single rank nor the whole group.
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ from __future__ import annotations
 import contextlib
 import os
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -29,13 +37,27 @@ import torch.distributed as dist
 @dataclass(frozen=True)
 class Mesh:
     """``data`` x ``model`` ranks of ``group`` (None: the default group);
-    ``rank`` is this process's rank in it, ``device`` where it computes."""
+    ``rank`` is this process's rank in it, ``device`` where it computes.
+    ``data_group`` / ``model_group`` are the process groups of this rank's
+    data and model groups; a group of one rank is never reduced over (its
+    field may be None, which is not the default group here)."""
 
     data: int
     model: int
     rank: int
     device: torch.device
     group: Optional[dist.ProcessGroup] = None
+    data_group: Optional[dist.ProcessGroup] = None
+    model_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def coords(self) -> Tuple[int, int]:
+        """This rank's (d, m): its data shard and its column slice."""
+        return divmod(self.rank, self.model)
+
+    def __deepcopy__(self, memo):
+        # a handle on process groups: copies of a model share it
+        return self
 
 
 def make_mesh(data: int = 1, model: int = 1, *,
@@ -43,6 +65,10 @@ def make_mesh(data: int = 1, model: int = 1, *,
               device=None) -> Mesh:
     """A ``data`` x ``model`` mesh over the first data * model ranks of
     ``group`` (the default group when None), which must be initialized.
+    Where the mesh's data or model groups are neither single ranks nor the
+    whole group, they are built here with ``dist.new_group``, so every rank
+    of the default group calls it, in the same order (ranks outside the
+    mesh get no groups).
     ``device`` defaults to this rank's current CUDA device on any backend
     (a gloo group too), and raises without one: the CPU only where the
     caller passes it. NCCL takes no CPU device."""
@@ -61,7 +87,33 @@ def make_mesh(data: int = 1, model: int = 1, *,
     device = torch.device(device)
     if dist.get_backend(group) == "nccl" and device.type != "cuda":
         raise ValueError(f"an NCCL group computes on CUDA devices, not {device}")
-    return Mesh(data, model, dist.get_rank(group), device, group)
+    rank = dist.get_rank(group)
+    d, m = divmod(rank, model)
+    data_groups, model_groups = _mesh_groups(group, data, model, have)
+    in_mesh = rank < n
+    return Mesh(data, model, rank, device, group,
+                data_groups[m] if in_mesh else None,
+                model_groups[d] if in_mesh else None)
+
+
+def _mesh_groups(group, data: int, model: int, have: int):
+    """(the data group of each m, the model group of each d): None for one
+    rank, ``group`` for all of it, else a ``dist.new_group``, which every
+    rank of the default group builds, in this order."""
+    def make(ranks):
+        if len(ranks) == 1:
+            return None
+        if len(ranks) == have:
+            return group
+        if group is not None:
+            ranks = [dist.get_global_rank(group, r) for r in ranks]
+        return dist.new_group(ranks)
+
+    model_groups = [make([d * model + e for e in range(model)])
+                    for d in range(data)]
+    data_groups = [make([e * model + m for e in range(data)])
+                   for m in range(model)]
+    return data_groups, model_groups
 
 
 def init_from_env(device_type: str = "cuda") -> Mesh:

@@ -16,7 +16,24 @@ tiled kernels, at the model's ``compute_dtype``: ``tpu.conv_dtype``,
 bfloat16 or float32) with the trained weights. ``tpu.train_microbatch``
 k > 0 accumulates gradients over microbatches of k scenes; 0 (the default)
 steps on the whole batch, except on the dense route on the card, which
-takes 1 as the JAX package's accelerator does.
+takes 1 as the JAX package's accelerator does. ``tpu.train_dense_levels``
+sites (default: the stem) run through the scatter-dense engine on the
+gather backbone: the loader collates flat level ids for them.
+
+With ``tpu.mesh_data`` x ``tpu.mesh_model`` > 1 the loop trains on a mesh
+(``parallel/data_parallel.py``), as the JAX package's mesh branch does and
+before the backbone choice: the gather backbone with no microbatching
+and no dense sites, sync-BN over the data ranks, the conv kernels
+column-parallel over the model ranks. The port runs one process a device:
+the branch needs an initialized process group (torchrun, or
+``parallel/launch.py:run_ranks``), of which every rank calls the loop.
+Each rank's loader draws the same global batch of ``batch_size x data``
+scenes (the loader's seed) and collates the rank's shard. Every rank
+resumes from the full checkpoint and takes its slices; at a validated
+epoch the ranks gather the full state, rank 0 alone writes the
+checkpoint (one the single-process loop and the JAX package restore) and
+the metrics logs and runs the single-device validation, and the others
+wait for its result.
 """
 
 from __future__ import annotations
@@ -30,7 +47,7 @@ from typing import Callable, Optional
 import torch
 
 from canonicalvoting_tpu_torch.data.collate import (
-    collate_joint, collate_joint_dense)
+    collate_joint, collate_joint_dense, collate_joint_sharded)
 from canonicalvoting_tpu_torch.data.geometry import NCLASSES
 from canonicalvoting_tpu_torch.data.loader import DataLoader
 from canonicalvoting_tpu_torch.decode.peeling import PeelConfig
@@ -38,13 +55,16 @@ from canonicalvoting_tpu_torch.eval.gt import load_gt_scene
 from canonicalvoting_tpu_torch.eval.pipeline import DetectionPipeline
 from canonicalvoting_tpu_torch.metrics.ap import compute_map
 from canonicalvoting_tpu_torch.models.minkunet import MinkUNet34C, dense_twin
+from canonicalvoting_tpu_torch.parallel.data_parallel import (
+    gather_train_state, make_dp_train_step, shard_train_state, share_result,
+    training_mesh)
 from canonicalvoting_tpu_torch.train.checkpoint import (
     latest_checkpoint, restore_checkpoint, save_checkpoint)
 from canonicalvoting_tpu_torch.train.schedules import (
     bn_momentum_for_epoch, lr_for_epoch)
 from canonicalvoting_tpu_torch.train.steps import (
-    check_ported_routes, create_train_state, create_train_state_dense,
-    make_joint_train_step, train_backbone, train_microbatch)
+    create_train_state, create_train_state_dense,
+    make_joint_train_step, parse_dense_sites, train_backbone, train_microbatch)
 from canonicalvoting_tpu_torch.utils.meters import AverageMeter
 from canonicalvoting_tpu_torch.utils.metrics_log import MetricsLogger
 
@@ -52,23 +72,30 @@ logger = logging.getLogger(__name__)
 
 
 def train_epochs(cfg, state, loader, step_fn, workdir: str, eval_every: int,
-                 max_epoch: int, validate: Callable, tag: str = ""):
+                 max_epoch: int, validate: Callable, tag: str = "",
+                 mesh=None):
     """The epoch loop both trainers share: resume from the newest
     checkpoint of ``workdir``, then per epoch the scheduled learning rate
     and BN momentum, one step a batch, and every ``eval_every`` epochs a
     checkpoint and ``validate(state)``. Each epoch's row goes to
     ``workdir/train.{csv,jsonl}`` and each validation's table at IoU t to
     ``workdir/val_iou<t>.{csv,jsonl}`` (``utils/metrics_log.py``). Returns
-    (state, the last validation's result or None)."""
+    (state, the last validation's result or None). On a ``mesh`` the full
+    ``state`` is restored on every rank and then sharded; a validated
+    epoch gathers it, and rank 0 alone writes the checkpoint and the logs
+    and validates, its result shared with the others."""
     start_epoch = cfg.start_epoch
     ckpt = latest_checkpoint(workdir)
     if ckpt is not None:
         state, saved_epoch = restore_checkpoint(ckpt, state)
         start_epoch = saved_epoch + 1
         logger.info("%sresumed from %s (epoch %d)", tag, ckpt, saved_epoch)
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        state = shard_train_state(state, mesh)
     meter = AverageMeter()
     ret = None
-    train_log = MetricsLogger(workdir, "train")
+    train_log = MetricsLogger(workdir, "train") if lead else None
     for epoch in range(start_epoch, max_epoch + 1):
         lr = lr_for_epoch(epoch, cfg.opt.learning_rate, cfg.lr_decay_steps,
                           cfg.lr_decay_rates)
@@ -80,22 +107,27 @@ def train_epochs(cfg, state, loader, step_fn, workdir: str, eval_every: int,
         for batch in loader:
             state, losses = step_fn(state, batch, lr, mom)
             meter.update(float(losses["loss"]))
-            scenes += len(batch["meta"]["ids"])
+            scenes += len(batch["meta"]["ids"]) * (mesh.data if mesh else 1)
         seconds = time.perf_counter() - t0
         state.history.append({"epoch": epoch, "loss": meter.avg,
                               "batches": meter.count, "scenes": scenes,
                               "seconds": seconds})
         logger.info("%sepoch %d: loss=%.4f (%.1fs, lr=%.2e, bn_mom=%.3f)",
                     tag, epoch, meter.avg, seconds, lr, mom)
-        train_log.log(epoch, {**state.history[-1], "lr": lr,
-                              "bn_momentum": mom})
+        if lead:
+            train_log.log(epoch, {**state.history[-1], "lr": lr,
+                                  "bn_momentum": mom})
         if epoch % eval_every == 0:
-            save_checkpoint(os.path.join(workdir, f"epoch{epoch}.ckpt"),
-                            state, epoch)
-            ret = validate(state)
-            for thresh, table in ret.items():
-                MetricsLogger(workdir, f"val_iou{thresh}").log_map_table(
-                    epoch, table, thresh)
+            full = state if mesh is None else gather_train_state(state, mesh)
+            if lead:
+                save_checkpoint(os.path.join(workdir, f"epoch{epoch}.ckpt"),
+                                full, epoch)
+                ret = validate(full)
+                for thresh, table in ret.items():
+                    MetricsLogger(workdir, f"val_iou{thresh}").log_map_table(
+                        epoch, table, thresh)
+            if mesh is not None:
+                ret = share_result(ret, mesh)
     return state, ret
 
 
@@ -107,7 +139,6 @@ def run_joint_training(cfg, train_dataset, val_dataset, workdir: str = ".",
     """Train the joint model; returns (state, the last validation's mAP
     dict or None). Without ``model``, a MinkUNet34C with weights drawn from
     seed 0."""
-    check_ported_routes(cfg)
     os.makedirs(workdir, exist_ok=True)
     cap_multiple = cap_multiple or cfg.tpu.point_buckets[0]
     max_epoch = max_epoch if max_epoch is not None else cfg.max_epoch
@@ -115,27 +146,40 @@ def run_joint_training(cfg, train_dataset, val_dataset, workdir: str = ".",
         model = MinkUNet34C(cfg.in_channels, 6 * NCLASSES + NCLASSES + 1,
                            compute_dtype=cfg.tpu.conv_dtype,
                            generator=torch.Generator().manual_seed(0))
-    backbone = train_backbone(cfg)
-    mb = train_microbatch(cfg, backbone, device)
-    if backbone == "dense":
-        state = create_train_state_dense(model, cfg.weight_decay, device,
-                                         remat=cfg.tpu.train_remat)
-        collate = collate_joint_dense
+    mesh = None
+    if cfg.tpu.mesh_data * cfg.tpu.mesh_model > 1:
+        mesh = training_mesh(cfg, device)
+        device = mesh.device
+        state = create_train_state(model, cfg.weight_decay, device)
+        step_fn = make_dp_train_step(state.model, cfg, mesh)
+        batch_size = cfg.batch_size * mesh.data
+        collate = functools.partial(
+            collate_joint_sharded, n_shards=mesh.data, shard=mesh.coords[0],
+            cap_multiple=cap_multiple)
     else:
-        state = create_train_state(model, cfg.weight_decay, device,
-                                   remat=cfg.tpu.train_remat)
-        collate = collate_joint
-    step_fn = make_joint_train_step(state.model, cfg, backbone=backbone)
-    loader = DataLoader(
-        train_dataset, batch_size=cfg.batch_size,
-        collate_fn=functools.partial(collate, cap_multiple=cap_multiple,
-                                     microbatch=mb),
-        shuffle=True, num_workers=cfg.num_workers, drop_last=True)
+        backbone = train_backbone(cfg)
+        mb = train_microbatch(cfg, backbone, device)
+        if backbone == "dense":
+            state = create_train_state_dense(model, cfg.weight_decay, device,
+                                             remat=cfg.tpu.train_remat)
+            collate = functools.partial(collate_joint_dense, microbatch=mb)
+        else:
+            state = create_train_state(model, cfg.weight_decay, device,
+                                       remat=cfg.tpu.train_remat)
+            collate = functools.partial(
+                collate_joint, microbatch=mb, with_flat_levels=bool(
+                    parse_dense_sites(cfg.tpu.train_dense_levels)))
+        step_fn = make_joint_train_step(state.model, cfg, backbone=backbone)
+        batch_size = cfg.batch_size
+        collate = functools.partial(collate, cap_multiple=cap_multiple)
+    loader = DataLoader(train_dataset, batch_size=batch_size, collate_fn=collate,
+                        shuffle=True, num_workers=cfg.num_workers,
+                        drop_last=True)
     try:
         return train_epochs(
             cfg, state, loader, step_fn, workdir, eval_every, max_epoch,
             lambda s: run_joint_validation(cfg, s.model, val_dataset,
-                                           gt_lookup, device))
+                                           gt_lookup, device), mesh=mesh)
     finally:
         loader.close()
 

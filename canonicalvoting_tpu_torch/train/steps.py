@@ -26,10 +26,14 @@ same parameter names, so checkpoints and the validation's dense backbone
 interchange with the gather form's. Its float32 convs run on the card with
 TF32 off (cuDNN's default rounds float32 conv operands to TF32).
 ``tpu.train_remat`` is :func:`create_train_state`'s ``remat``.
-Mesh training raises (:func:`check_ported_routes`).
-``tpu.train_dense_levels`` is parsed and the gather form runs at every
-site: the JAX package's scatter-dense engine (``ops/scatter_conv.py``)
-computes the same outputs through another mechanism.
+
+On the gather backbone, ``tpu.train_dense_levels`` (default "stem") routes
+its conv sites through the scatter-dense engine (``ops/scatter_conv.py``)
+for batches collated ``with_flat_levels=True`` (the loops do so whenever
+a site is listed), as the JAX step does: :func:`build_dense_plans` makes
+the sites' plans from the batch's flat ids; the outputs are the gather
+form's. Mesh training (``tpu.mesh_data`` x ``tpu.mesh_model`` > 1) steps
+through ``parallel/data_parallel.py``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 
 from canonicalvoting_tpu_torch.data.collate import batch_parts, upload_batch
 from canonicalvoting_tpu_torch.models.minkunet import dense_twin
+from canonicalvoting_tpu_torch.ops.scatter_conv import DensePlan
 from canonicalvoting_tpu_torch.train.losses import joint_losses, separate_losses
 
 BACKBONES = ("auto", "gather", "dense")
@@ -101,10 +106,9 @@ def set_lr(optimizer: torch.optim.Optimizer, lr) -> None:
 
 
 def parse_dense_sites(spec: str, n_levels: int = 5) -> frozenset:
-    """``tpu.train_dense_levels`` -> the conv sites the JAX package routes
-    through its scatter-dense engine: "" none; "all"; or a comma list of
-    "stem", level ints (block convs) and "downI"/"upI". The port parses the
-    key and runs the gather form at every site."""
+    """``tpu.train_dense_levels`` -> the conv sites routed through the
+    scatter-dense engine: "" none; "all"; or a comma list of "stem", level
+    ints (block convs) and "downI"/"upI"."""
     if not spec:
         return frozenset()
     if spec == "all":
@@ -129,6 +133,34 @@ def parse_dense_sites(spec: str, n_levels: int = 5) -> frozenset:
     return frozenset(out)
 
 
+def build_dense_plans(flat_levels, grid_dims, n_scenes: int, sites,
+                      stem_kernel: int = 5) -> Dict:
+    """The ``DensePlan`` of each site of ``sites`` from a batch's level
+    flat ids (``collate_* (with_flat_levels=True)``, on the device) and its
+    L0 dims (JAX ``build_dense_plans``): the stem folded, the block convs
+    "sub", the downs and ups at their input level's grid."""
+    nlev = len(flat_levels)
+    gs = [(n_scenes,) + tuple(int(d) >> lv for d in grid_dims)
+          for lv in range(nlev)]
+    plans = {}
+    if "stem" in sites:
+        plans["stem"] = DensePlan(flat_levels[0], flat_levels[0],
+                                  kind="stem_fold", k=stem_kernel,
+                                  grid_shape=gs[0])
+    for lv in range(nlev):
+        if ("conv", lv) in sites:
+            plans[("conv", lv)] = DensePlan(flat_levels[lv], flat_levels[lv],
+                                            kind="sub", k=3, grid_shape=gs[lv])
+    for i in range(nlev - 1):
+        if ("down", i) in sites:
+            plans[("down", i)] = DensePlan(flat_levels[i], flat_levels[i + 1],
+                                           kind="down", k=2, grid_shape=gs[i])
+        if ("up", i) in sites:
+            plans[("up", i)] = DensePlan(flat_levels[i + 1], flat_levels[i],
+                                         kind="up", k=2, grid_shape=gs[i + 1])
+    return plans
+
+
 def train_backbone(cfg) -> str:
     """``tpu.train_backbone`` as a step's ``backbone``: "auto" trains the
     gather form, the JAX package's measured choice."""
@@ -150,16 +182,6 @@ def train_microbatch(cfg, backbone: str, device) -> int:
     return mb
 
 
-def check_ported_routes(cfg) -> None:
-    """Raise for the training routes of the config that are not ported
-    (mesh training), and for an unknown backbone."""
-    train_backbone(cfg)
-    if cfg.tpu.mesh_data * cfg.tpu.mesh_model > 1:
-        raise NotImplementedError(
-            "mesh training (tpu.mesh_data x tpu.mesh_model > 1) is not ported "
-            "yet (ROADMAP A11); train on one device")
-
-
 @contextlib.contextmanager
 def exact_float32_convs(on: bool):
     """cuDNN's float32 convs without TF32 inside (when ``on``), the
@@ -174,12 +196,14 @@ def exact_float32_convs(on: bool):
 
 
 def accumulate_grads(model: torch.nn.Module, batch: Dict,
-                     losses_of: Callable, bn_momentum) -> Dict[str, torch.Tensor]:
+                     losses_of: Callable, bn_momentum,
+                     divisor: int = 1) -> Dict[str, torch.Tensor]:
     """One forward and backward a microbatch (or of the whole batch), in
     order; leaves the gradients averaged over the microbatches in the
     parameters' ``.grad`` and returns the averaged losses (detached).
     Autograd is on inside, whatever the caller's grad mode; a float32
-    model's convs take no TF32."""
+    model's convs take no TF32. ``divisor`` divides the loss each backward
+    takes (a mesh's data shards), not the losses returned."""
     model.train()
     for p in model.parameters():
         p.grad = None
@@ -190,7 +214,8 @@ def accumulate_grads(model: torch.nn.Module, batch: Dict,
     for part in parts:
         with torch.enable_grad(), exact_float32_convs(exact):
             losses = losses_of(upload_batch(part, device), float(bn_momentum))
-            losses["loss"].backward()
+            loss = losses["loss"]
+            (loss if divisor == 1 else loss / divisor).backward()
         losses = {k: v.detach() for k, v in losses.items()}
         total = losses if total is None else {k: total[k] + v
                                               for k, v in losses.items()}
@@ -203,42 +228,53 @@ def accumulate_grads(model: torch.nn.Module, batch: Dict,
     return total
 
 
+def apply_update(state: TrainState, lr) -> TrainState:
+    """One optimizer update at learning rate ``lr`` from the gradients in
+    the parameters' ``.grad``."""
+    set_lr(state.optimizer, lr)
+    state.optimizer.step()
+    state.step += 1
+    return state
+
+
 def _make_step(losses_of: Callable) -> Callable:
     def step(state: TrainState, batch: Dict, lr, bn_momentum):
         losses = accumulate_grads(state.model, batch, losses_of, bn_momentum)
-        set_lr(state.optimizer, lr)
-        state.optimizer.step()
-        state.step += 1
-        return state, losses
+        return apply_update(state, lr), losses
 
     return step
 
 
-def _forward(model: torch.nn.Module, backbone: str):
+def _forward(model: torch.nn.Module, backbone: str, dense_sites=frozenset()):
     """``(batch, momentum) -> (head rows, nvalid)`` of a train-mode forward
-    on the backbone's batches."""
+    on the backbone's batches; on the gather backbone, the ``dense_sites``
+    of a batch with flat levels run through the scatter-dense engine."""
     if backbone not in ("gather", "dense"):
         raise ValueError(f"backbone must be 'gather' or 'dense', got {backbone!r}")
 
     def run(b, mom):
+        meta = b["meta"]
         if backbone == "dense":
-            meta = b["meta"]
             return model.train_forward(
                 b["feats"], b["flat_idx"], b["valid"], tuple(meta["grid_dims"]),
                 mom, n_scenes=meta["n_scenes"]), b["nvalid"]
-        return model(b["feats"], b["pyramid"], True, mom), b["pyramid"]["nvalid"][0]
+        plans = None
+        if dense_sites and "flat_levels" in b:
+            plans = build_dense_plans(b["flat_levels"], meta["grid_dims"],
+                                      meta["n_scenes"], dense_sites,
+                                      model.stem_kernel)
+        return (model(b["feats"], b["pyramid"], True, mom, dense_plans=plans),
+                b["pyramid"]["nvalid"][0])
 
     return run
 
 
-def make_joint_train_step(model: torch.nn.Module, cfg,
-                          backbone: str = "gather") -> Callable:
-    """``step(state, batch, lr, bn_momentum) -> (state, losses)`` for a
-    ``MinkUNetBase`` fed ``collate_joint`` batches, or (``backbone=
-    "dense"``) a ``DenseMinkUNet`` fed ``collate_joint_dense`` batches."""
-    parse_dense_sites(cfg.tpu.train_dense_levels)
+def joint_losses_of(model: torch.nn.Module, cfg,
+                    backbone: str = "gather") -> Callable:
+    """``(device batch, momentum) -> losses`` of the joint step."""
     xyz_weights = tuple(cfg.xyz_weights)
-    forward = _forward(model, backbone)
+    forward = _forward(model, backbone,
+                       parse_dense_sites(cfg.tpu.train_dense_levels))
 
     def losses_of(b, mom):
         out, nvalid = forward(b, mom)
@@ -246,17 +282,23 @@ def make_joint_train_step(model: torch.nn.Module, cfg,
                             b["class_labels"], nvalid, xyz_weights,
                             cfg.log_scale, cfg.xyz_factor, cfg.scale_factor)
 
-    return _make_step(losses_of)
+    return losses_of
 
 
-def make_separate_train_step(model: torch.nn.Module, cfg, max_objects: int,
-                             backbone: str = "gather") -> Callable:
-    """As :func:`make_joint_train_step`, for a per-category model fed
-    ``collate_separate`` batches (``dense=True`` ones on the dense route;
-    upstream train_separate.py:184-298)."""
-    parse_dense_sites(cfg.tpu.train_dense_levels)
+def make_joint_train_step(model: torch.nn.Module, cfg,
+                          backbone: str = "gather") -> Callable:
+    """``step(state, batch, lr, bn_momentum) -> (state, losses)`` for a
+    ``MinkUNetBase`` fed ``collate_joint`` batches, or (``backbone=
+    "dense"``) a ``DenseMinkUNet`` fed ``collate_joint_dense`` batches."""
+    return _make_step(joint_losses_of(model, cfg, backbone))
+
+
+def separate_losses_of(model: torch.nn.Module, cfg, max_objects: int,
+                       backbone: str = "gather") -> Callable:
+    """``(device batch, momentum) -> losses`` of the separate step."""
     xyz_weights = tuple(cfg.xyz_weights)
-    forward = _forward(model, backbone)
+    forward = _forward(model, backbone,
+                       parse_dense_sites(cfg.tpu.train_dense_levels))
 
     def losses_of(b, mom):
         out, nvalid = forward(b, mom)
@@ -266,4 +308,12 @@ def make_separate_train_step(model: torch.nn.Module, cfg, max_objects: int,
             xyz_weights, max_objects, cfg.log_scale, cfg.xyz_factor,
             cfg.scale_factor)
 
-    return _make_step(losses_of)
+    return losses_of
+
+
+def make_separate_train_step(model: torch.nn.Module, cfg, max_objects: int,
+                             backbone: str = "gather") -> Callable:
+    """As :func:`make_joint_train_step`, for a per-category model fed
+    ``collate_separate`` batches (``dense=True`` ones on the dense route;
+    upstream train_separate.py:184-298)."""
+    return _make_step(separate_losses_of(model, cfg, max_objects, backbone))

@@ -9,7 +9,10 @@ Usage:
 Overrides, ``--config=<yaml>`` and ``--cpu`` as ``train_joint``; each
 category's checkpoints and metrics files (as ``train_joint``'s) go to
 ``workdir=<dir>/<category>`` (default ``multirun``, ``multirun/synthetic``
-with ``--synthetic``).
+with ``--synthetic``). Mesh training runs under torchrun as
+``train_joint``'s does (``torchrun --nproc-per-node 2 -m
+canonicalvoting_tpu_torch.train_separate category=03001627
+tpu.mesh_data=2``), one category after another on the same ranks.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ def main(argv):
     validation's mAP dict or None)}."""
     from canonicalvoting_tpu_torch.config import load_config, parse_cli
     from canonicalvoting_tpu_torch.train.separate_loop import run_separate_training
-    from canonicalvoting_tpu_torch.train_joint import split_args
+    from canonicalvoting_tpu_torch.train_joint import split_args, training_group
 
     flags, workdir, rest = split_args(argv)
     device = "cpu" if "--cpu" in flags else "cuda"
@@ -68,24 +71,28 @@ def main(argv):
     synthetic = "--synthetic" in flags
     root = workdir or ("multirun/synthetic" if synthetic else "multirun")
     out = {}
-    for category in categories:
-        cfg = load_config(yaml_path, overrides)
-        cfg.category = category
-        if synthetic:
-            ds, gt_lookup = build_synthetic_sym(cfg)
-            me = min(cfg.max_epoch, 1)
-            out[category] = run_separate_training(
-                cfg, ds, ds, workdir=os.path.join(root, category),
-                gt_lookup=gt_lookup, eval_every=max(me, 1), max_epoch=me,
-                device=device)
-            continue
-        from canonicalvoting_tpu_torch.data.scannet import ScanNetXYZProbSymDataset
+    with training_group(load_config(yaml_path, overrides), device):
+        for category in categories:
+            cfg = load_config(yaml_path, overrides)
+            cfg.category = category
+            if synthetic:
+                ds, gt_lookup = build_synthetic_sym(cfg)
+                me = min(cfg.max_epoch, 1)
+                out[category] = run_separate_training(
+                    cfg, ds, ds, workdir=os.path.join(root, category),
+                    gt_lookup=gt_lookup, eval_every=max(me, 1), max_epoch=me,
+                    device=device)
+                continue
+            from canonicalvoting_tpu_torch.data.scannet import (
+                ScanNetXYZProbSymDataset)
 
-        train_ds = ScanNetXYZProbSymDataset(cfg, training=True, augment=cfg.augment)
-        val_ds = ScanNetXYZProbSymDataset(cfg, training=False, augment=False)
-        out[category] = run_separate_training(
-            cfg, train_ds, val_ds, workdir=os.path.join(root, category),
-            device=device)
+            train_ds = ScanNetXYZProbSymDataset(cfg, training=True,
+                                                augment=cfg.augment)
+            val_ds = ScanNetXYZProbSymDataset(cfg, training=False,
+                                              augment=False)
+            out[category] = run_separate_training(
+                cfg, train_ds, val_ds, workdir=os.path.join(root, category),
+                device=device)
     return out
 
 

@@ -1,7 +1,10 @@
 """Load weights into the port's modules.
 
 Three sources, one tree, which the dense ``DenseMinkUNet`` and the sparse
-``MinkUNetBase`` share, and the way back: :func:`to_jax_variables` gives a
+``MinkUNetBase`` share (the sparse ResNet classifier,
+``models/resnet_classifier.py``, has the JAX classifier's: ``conv1``,
+``bn1``, ``down<i>``, ``layer<i>_<j>``, and ``final`` a dense layer with
+``kernel`` (Cin, classes) and ``bias``), and the way back: :func:`to_jax_variables` gives a
 model's weights as the JAX tree and :func:`reference_state_dict_template`
 that tree in the upstream layout. The JAX package's variables are nested dicts
 ``{"params": {...}, "batch_stats": {...}}`` whose paths are the port's module

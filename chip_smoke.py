@@ -141,6 +141,21 @@ two scenes and eval_joint.main fanned out over a ScanNet tree of the three
 scenes: detections bit for bit the single-process pipelines' and CLI's,
 the CLI's mAP, each rank's launches, scenes/s, phase timers and peak
 memory. Two ranks on one card measure no speedup.
+The train phase also runs the gather step at tpu.train_dense_levels "",
+"stem" and "all" (the scatter-dense engine at the listed sites) on the
+three scenes: each setting's first-step losses and gradients against the
+gather form's, its step ms and peak memory.
+The mesh_train phase (last) trains on a data x model mesh
+(parallel/data_parallel.py): four gloo ranks sharing the card as a 2 x 2
+mesh at full width (finite losses, running statistics equal across the
+data ranks, replicated parameters equal across the model ranks, per
+rank step ms, gradient all-reduce ms and bytes, sync-BN all-reduces a
+step, peak memory; the first step's gradient against a 2 x 1 mesh's,
+beside the 2 x 1 step's own repeat, at bf16 and float32), the narrow
+float32 2 x 2 step on the card against CPU ranks and against 2 x 1 on
+the card (TP neutrality, 1e-4 of each peak), make_dp_train_step on one NCCL rank bit for bit train/steps.py's
+step, and both loops with tpu.mesh_data=2 over two ranks (rank 0's
+validation launches, its checkpoint restored by the single-process loop).
 
 The last two lines are the kernels' summary (the nine bf16 rows, then the
 six float32 rows as <name>_f32) and the status line. The script
@@ -2460,6 +2475,11 @@ TRAIN_CONV_TOL = 1e-2
 # TRAIN_GRAD_WORST, all of them together at most TRAIN_GRAD_GLOBAL, and the
 # head's (final.kernel) at most TRAIN_HEAD_GRAD (PERF.md gives their grounds)
 TRAIN_GRAD_WORST, TRAIN_GRAD_GLOBAL, TRAIN_HEAD_GRAD = 2.0, 0.9, 0.05
+# the scatter-dense sites' bf16 step against the gather form's: the
+# dense grid rounds each conv's output to bf16 where the gather form keeps
+# float32 rows, so the first step's loss may differ by this much (relative)
+# and its gradients by the bf16 step's bounds above
+TRAIN_SITES_LOSS_REL = 1e-2
 TRAIN_REPS = 3        # timed steps, after one warm-up
 TRAIN_DESCENT = 5     # steps on the fixed batch that must lower the loss
 # the loops' scenes: the JAX train_joint.py --synthetic recipe's size
@@ -2622,14 +2642,80 @@ def allocated_gib():
 def grad_errors(ref_model, model):
     """Each parameter tensor's relative L2 error of ``model``'s gradient
     against ``ref_model``'s, and all of them together."""
+    return grad_dict_errors({n: p.grad for n, p in ref_model.named_parameters()},
+                            {n: p.grad for n, p in model.named_parameters()})
+
+
+def grad_dict_errors(ref, got):
+    """:func:`grad_errors` of two {name: gradient} dicts."""
     import torch
 
-    ref = dict(ref_model.named_parameters())
-    per = {n: float((p.grad - ref[n].grad).norm() / ref[n].grad.norm())
-           for n, p in model.named_parameters()}
-    a = torch.cat([p.grad.flatten() for _, p in model.named_parameters()])
-    b = torch.cat([ref[n].grad.flatten() for n, _ in model.named_parameters()])
+    per = {n: float((g - ref[n]).norm() / ref[n].norm()) for n, g in got.items()}
+    a = torch.cat([g.flatten() for g in got.values()])
+    b = torch.cat([ref[n].flatten() for n in got])
     return per, float((a - b).norm() / b.norm()), float(a @ b / (a.norm() * b.norm()))
+
+
+def grads_ok(per, glob):
+    """The bf16 step's gradient bounds (TRAIN_GRAD_*)."""
+    return (max(per.values()) <= TRAIN_GRAD_WORST and glob <= TRAIN_GRAD_GLOBAL
+            and per["final.kernel"] <= TRAIN_HEAD_GRAD)
+
+
+def dense_sites_runs(joint_model, joint_items, failures):
+    """The gather step at tpu.train_dense_levels "", "stem" and "all" (the
+    scatter-dense engine at the listed sites: cuDNN convs on the stacked
+    grids, the stem folded) on the full-width batch: each setting's first
+    step's losses and gradients against the gather form's ("") within the
+    bf16 step's gradient bounds and TRAIN_SITES_LOSS_REL, and its step ms
+    and peak memory."""
+    import numpy as np
+    import torch
+
+    from canonicalvoting_tpu_torch.config import load_config
+    from canonicalvoting_tpu_torch.data.collate import collate_joint
+    from canonicalvoting_tpu_torch.train import steps
+
+    runs, ref = {}, None
+    for sites in ("", "stem", "all"):
+        cfg = load_config(None, [])
+        cfg.tpu.train_dense_levels = sites
+        batch, t_c = sync_ms(lambda: collate_joint(
+            joint_items, cap_multiple=4096, with_flat_levels=bool(sites)))
+        base = allocated_gib()
+        state = steps.create_train_state(joint_model("bfloat16"), 0.0, DEVICE)
+        step = steps.make_joint_train_step(state.model, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        state, losses = step(state, batch, 1e-3, 0.5)
+        first = {"losses": {k: float(v) for k, v in losses.items()},
+                 "grads": {n: p.grad.clone() for n, p in
+                           state.model.named_parameters()}}
+        _, ms, peak = train_step_run(step, state, batch)
+        run = {"sites": sites or "none", "step_ms": ms, "collate_ms": t_c,
+               "peak_gib": peak, "peak_above_base_gib": peak - base,
+               "losses": first["losses"]}
+        if sites:
+            meta = batch["meta"]
+            run["grid_dims"] = list(meta["grid_dims"])
+            run["grid_cells_l0"] = int(np.prod(meta["grid_dims"])) * meta["n_scenes"]
+            per, glob, cos = grad_dict_errors(ref["grads"], first["grads"])
+            loss_rel = abs(first["losses"]["loss"] - ref["losses"]["loss"]) / abs(
+                ref["losses"]["loss"])
+            worst = max(per, key=per.get)
+            run["vs_gather"] = {
+                "loss_rel": loss_rel, "global_rel_l2": glob, "cosine": cos,
+                "worst": {"tensor": worst, "rel_l2": per[worst]},
+                "head_rel_l2": per["final.kernel"],
+                "ok": grads_ok(per, glob) and loss_rel <= TRAIN_SITES_LOSS_REL}
+            if not run["vs_gather"]["ok"]:
+                failures.append(("dense sites", sites, run["vs_gather"]))
+        else:
+            ref = first
+        runs[sites or "none"] = run
+        emit({"phase": "train", "check": "dense_sites", **run})
+        del state, step, batch, first
+        torch.cuda.empty_cache()
+    return runs
 
 
 def loop_checks(name, state, ret, launches, per_scene, n_val, validations,
@@ -2752,18 +2838,20 @@ def phase_train(scenes):
                                      models["bfloat16"].model)
         worst = max(per, key=per.get)
         vals = sorted(per.values())
-        grads_ok = (per[worst] <= TRAIN_GRAD_WORST and glob <= TRAIN_GRAD_GLOBAL
-                    and per["final.kernel"] <= TRAIN_HEAD_GRAD)
+        ok = grads_ok(per, glob)
         emit({"phase": "train", "check": "bf16_grads_vs_f32", "tensors": len(per),
               "worst": {"tensor": worst, "rel_l2": per[worst]},
               "median_rel_l2": float(np.median(vals)), "global_rel_l2": glob,
               "cosine": cos, "head_rel_l2": per["final.kernel"],
               "bounds": [TRAIN_GRAD_WORST, TRAIN_GRAD_GLOBAL, TRAIN_HEAD_GRAD],
-              "ok": grads_ok, "rel_l2": per})
-        if not grads_ok:
+              "ok": ok, "rel_l2": per})
+        if not ok:
             failures.append(("bf16 gradients", worst, per[worst], glob))
         del models
         torch.cuda.empty_cache()
+
+        # the scatter-dense engine's sites (tpu.train_dense_levels)
+        dense_sites_runs(joint_model, joint_items, failures)
 
         # five steps on the fixed batch lower the loss; BN statistics move
         state = steps.create_train_state(joint_model("bfloat16"), 0.0, DEVICE)
@@ -4060,6 +4148,497 @@ def phase_parallel(pipe, sep, scenes, card):
             for n in SOURCES}
 
 
+# ---------------------------------------------------------------------------
+# mesh training: data x model parallel steps with sync-BN over
+# torch.distributed ranks that share the card
+
+MESH_DIR = "build/mesh_train"
+MESH_STEPS = 3          # timed steps of the full-width 2 x 2 mesh
+# the JAX mesh test's narrow float32 step: 2 x 2 on the card against 2 x 2
+# on CPU ranks and against 2 x 1 on the card (TP neutrality), float32
+# sums in another order, 1e-4 of each tensor's peak. At full width the
+# step is held to no such bound: it is not repeatable on the card to
+# percents of a tensor's peak (index_add_'s atomics reorder float32 sums,
+# and the full-width step amplifies a 1e-6 change to 1e-2, PERF.md), so
+# the 2 x 2 gradient's difference from the 2 x 1 one is printed beside
+# the 2 x 1 step's own repeat difference, at bf16 and float32, and (at
+# float32) beside the 2 x 1 step's with its weights perturbed
+MESH_CARD_CPU_TOL = 1e-4
+# the float32 2 x 1 step again with every weight moved by this relative
+# amount (a rounding of float32): how far the full-width step's gradient
+# moves for a change of the size of the 2 x 2 step's reordered sums
+MESH_PERTURB = 1e-7
+# the JAX test's narrow plan (tests/test_parallel.py:140-144)
+MESH_NARROW = dict(layers=(1,) * 8, planes=(8, 16, 16, 16, 16, 16, 8, 8),
+                   init_dim=8)
+
+
+def mesh_narrow_items():
+    """The JAX mesh test's two scenes (tests/test_parallel.py:131-138)."""
+    import numpy as np
+
+    from canonicalvoting_tpu_torch.data.synthetic import make_scene
+    from canonicalvoting_tpu_torch.ops.voxelize import sparse_quantize
+
+    rng = np.random.RandomState(7)
+    items = []
+    for i in range(2):
+        sc = make_scene(rng, extent=(0.9, 0.8, 0.9), n_background=400,
+                        n_boxes=1, pts_per_box=150)
+        coords, idx = sparse_quantize(sc.points, 0.03)
+        items.append((f"s{i}", coords, sc.rgb[idx], sc.xyz_labels[idx],
+                      sc.scale_labels[idx], sc.class_labels[idx]))
+    return items
+
+
+def split_names(model):
+    """The parameters of ``model`` that are this rank's column slices."""
+    from canonicalvoting_tpu_torch.models.resnet import SparseConv
+
+    return {f"{n}.kernel" for n, m in model.named_modules()
+            if isinstance(m, SparseConv) and m.tp_mesh is not None}
+
+
+def full_grads(state, mesh):
+    """{name: the step's averaged gradient, split kernels all-gathered}
+    on the host."""
+    from canonicalvoting_tpu_torch.parallel.collectives import all_gather_columns
+
+    split = split_names(state.model)
+    return {n: (all_gather_columns(p.grad, mesh) if n in split
+                else p.grad).float().cpu()
+            for n, p in state.model.named_parameters()}
+
+
+def digests(tensors):
+    import hashlib
+
+    return {n: hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()
+            for n, t in tensors.items()}
+
+
+def mesh_train_rank(job):
+    """One of the mesh_train phase's four ranks (gloo, sharing the card):
+    the full-width 2 x 2 step (MESH_STEPS steps; per rank step ms, the
+    gradient all-reduce's ms and bytes, sync-BN all-reduces a step, peak
+    memory; digests of its running statistics and parameters), the 2 x 1
+    step on the same batch (ranks 0 and 1), and the narrow float32 2 x 2
+    step on the card and on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from canonicalvoting_tpu_torch.config import load_config
+    from canonicalvoting_tpu_torch.data.collate import collate_joint_sharded
+    from canonicalvoting_tpu_torch.models import norm
+    from canonicalvoting_tpu_torch.models.minkunet import MinkUNet34C, MinkUNetBase
+    from canonicalvoting_tpu_torch.parallel import data_parallel as dp
+    from canonicalvoting_tpu_torch.parallel.mesh import make_mesh
+    from canonicalvoting_tpu_torch.train import steps
+    from canonicalvoting_tpu_torch.utils.weights import from_jax_variables
+
+    t_rank = time.perf_counter()
+    dev = torch.device(job["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    rank = dist.get_rank()
+    cfg = load_config(None, [])
+    out = {"rank": rank}
+    n_sync, reduces = [0], []
+    sync_stats, average_grads = norm.sync_stats, dp.average_grads
+
+    def counting(packed, group):
+        n_sync[0] += 1
+        return sync_stats(packed, group)
+
+    def timed(model, losses, mesh):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = average_grads(model, losses, mesh)
+        sync(dev)
+        reduces.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "bytes": 4 * (sum(p.numel() for p in model.parameters())
+                                      + len(losses))})
+        return res
+
+    def full_width(mesh, n_steps, dtype="bfloat16", perturb=0.0):
+        model = MinkUNet34C(3, 64, compute_dtype=dtype,
+                            generator=torch.Generator().manual_seed(0))
+        if perturb:
+            g = torch.Generator().manual_seed(3)
+            for p in model.parameters():
+                p.data.add_(p.data * perturb * torch.randn(p.shape, generator=g))
+        state = dp.shard_train_state(
+            steps.create_train_state(model, 0.0, mesh.device), mesh)
+        step = dp.make_dp_train_step(state.model, cfg, mesh)
+        shard = collate_joint_sharded(job["items"], mesh.data, mesh.coords[0],
+                                      cap_multiple=4096)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        n_sync[0], times, curve, grads = 0, [], [], None
+        del reduces[:]
+        for i in range(n_steps):
+            sync(dev)
+            t0 = time.perf_counter()
+            state, losses = step(state, shard, 1e-3, 0.5)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            curve.append({k: float(v) for k, v in losses.items()})
+            if i == 0:
+                grads = full_grads(state, mesh)
+        return state, {"step_ms": times, "losses": curve,
+                       "grad_allreduce": list(reduces),
+                       "sync_bn_allreduces_per_step": 2 * n_sync[0] // n_steps,
+                       "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                    if cuda else None)}, grads
+
+    with patched(norm, sync_stats=counting), patched(dp, average_grads=timed):
+        mesh, mesh21 = make_mesh(2, 2, device=dev), make_mesh(2, 1, device=dev)
+        state, out["2x2"], grads = full_width(mesh, MESH_STEPS)
+        out["2x2"]["coords"] = mesh.coords
+        # the state after the steps: running statistics (equal across the
+        # data ranks) and replicated parameters (equal across the model ranks)
+        split = split_names(state.model)
+        out["stats"] = digests(dict(state.model.named_buffers()))
+        out["replicated"] = digests({n: p for n, p in state.model.named_parameters()
+                                     if n not in split})
+        del state
+        # the first step's gradients at full width, 2 x 2 against 2 x 1 and
+        # the 2 x 1 step against itself, at bf16 and at float32 (rank 0
+        # compares them and returns the errors)
+        kept = {}
+        for dtype in ("bfloat16", "float32"):
+            if dtype == "float32":
+                grads = full_width(mesh, 1, dtype)[2]
+            if rank == 0:
+                kept[f"2x2_{dtype}"] = grads
+            del grads
+            # twice, and at float32 once more with every weight moved by a
+            # relative MESH_PERTURB (the step's sensitivity)
+            for i in range(3 if dtype == "float32" else 2):
+                if rank < 2:
+                    _, info, grads = full_width(mesh21, 1, dtype,
+                                                MESH_PERTURB if i == 2 else 0.0)
+                    if rank == 0:
+                        kept[f"2x1_{dtype}_{i}"] = grads
+                        out.setdefault("2x1", []).append({"dtype": dtype, **info})
+                    del grads
+                if cuda:
+                    torch.cuda.empty_cache()
+        if rank == 0:
+            out["full"] = {dtype: {
+                "tp": worst_errors(peak_rel_errors(kept[f"2x2_{dtype}"],
+                                                   kept[f"2x1_{dtype}_0"])),
+                "repeat": worst_errors(peak_rel_errors(kept[f"2x1_{dtype}_1"],
+                                                       kept[f"2x1_{dtype}_0"]))}
+                for dtype in ("bfloat16", "float32")}
+            out["full"]["float32"]["perturbed"] = worst_errors(peak_rel_errors(
+                kept["2x1_float32_2"], kept["2x1_float32_0"]))
+        del kept
+        # the narrow float32 step: 2 x 2 on the card's ranks and on CPU
+        # ranks, 2 x 1 on the card's
+        for where, shape in (("card", (2, 2)), ("cpu", (2, 2)), ("card", (2, 1))):
+            m = make_mesh(*shape, device=dev if where == "card" else "cpu")
+            if rank >= shape[0] * shape[1]:
+                continue
+            net = from_jax_variables(MinkUNetBase(3, 64, compute_dtype="float32",
+                                                  **MESH_NARROW), *job["narrow_vars"])
+            st = dp.shard_train_state(steps.create_train_state(net, 0.0, m.device), m)
+            st, losses = dp.make_dp_train_step(st.model, cfg, m)(
+                st, collate_joint_sharded(job["narrow_items"], 2, m.coords[0],
+                                          cap_multiple=256), 1e-3, 0.5)
+            grads = full_grads(st, m)  # a collective: every rank of the mesh
+            if rank == 0:
+                out[f"narrow_{where}_{shape[0]}x{shape[1]}"] = {
+                    "losses": {k: float(v) for k, v in losses.items()},
+                    "grads": grads,
+                    "stats": {n: b.cpu() for n, b in st.model.named_buffers()}}
+    out["modules"] = sorted(sys.modules)
+    out["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
+def mesh_loops_rank(job):
+    """One of two gloo ranks sharing the card: both training loops with
+    tpu.mesh_data=2, one epoch (one global batch of six scenes, three a
+    shard) with rank 0's validation on the dense kernels; each loop's
+    kernel launches on this rank."""
+    import os
+
+    import torch
+
+    from canonicalvoting_tpu_torch.config import load_config
+    from canonicalvoting_tpu_torch.data.loader import ListDataset
+    from canonicalvoting_tpu_torch.train.joint_loop import run_joint_training
+    from canonicalvoting_tpu_torch.train.separate_loop import run_separate_training
+
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    cfg = load_config(None, ["tpu.mesh_data=2", "batch_size=3", "num_workers=1",
+                             "category=03001627"])
+    out = {}
+    for name, run, items in (("joint", run_joint_training, job["joint"]),
+                             ("separate", run_separate_training, job["separate"])):
+        reset_counters()
+        t0 = time.perf_counter()
+        state, ret = run(cfg, ListDataset(items[:LOOP_SCENES]),
+                         ListDataset(items[LOOP_SCENES:]),
+                         workdir=os.path.join(job["root"], name),
+                         gt_lookup=job["gts"].get, eval_every=1, max_epoch=0,
+                         device="cuda" if dev.type == "cuda" else "cpu")
+        out[name] = {"step": state.step, "history": state.history,
+                     "map": {str(t): float(d["mAP"]) for t, d in ret.items()},
+                     "launches": read_counters(),
+                     "call_s": time.perf_counter() - t0}
+    return out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (index_add_ without atomics; the
+    cuBLAS workspace pinned), the caller's setting restored after."""
+    import os
+
+    import torch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    old = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old)
+
+
+def one_rank_step(items, dp_step: bool):
+    """(losses, gradients, state dict) of one full-width bf16 step on
+    ``items``: train/steps.py's step, or make_dp_train_step on a 1 x 1
+    mesh of the one-rank group."""
+    import torch
+
+    from canonicalvoting_tpu_torch.config import load_config
+    from canonicalvoting_tpu_torch.data.collate import (
+        collate_joint, collate_joint_sharded)
+    from canonicalvoting_tpu_torch.models.minkunet import MinkUNet34C
+    from canonicalvoting_tpu_torch.parallel import data_parallel as dp
+    from canonicalvoting_tpu_torch.parallel.mesh import make_mesh
+    from canonicalvoting_tpu_torch.train import steps
+
+    cfg = load_config(None, [])
+    dev = "cuda:0" if DEVICE == "cuda" else DEVICE
+    state = steps.create_train_state(
+        MinkUNet34C(3, 64, generator=torch.Generator().manual_seed(0)), 0.0, dev)
+    if dp_step:
+        mesh = make_mesh(1, 1, device=dev)
+        state = dp.shard_train_state(state, mesh)
+        step = dp.make_dp_train_step(state.model, cfg, mesh)
+        batch = collate_joint_sharded(items, 1, 0, cap_multiple=4096)
+    else:
+        step = steps.make_joint_train_step(state.model, cfg)
+        batch = collate_joint(items, cap_multiple=4096)
+    with deterministic():
+        state, losses = step(state, batch, 1e-3, 0.5)
+    return ({k: v.cpu() for k, v in losses.items()},
+            {n: p.grad.cpu() for n, p in state.model.named_parameters()},
+            {k: v.cpu() for k, v in state.model.state_dict().items()})
+
+
+def max_diff(a, b):
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def worst_errors(errs):
+    """The largest of ``peak_rel_errors`` (and its tensor) and their median."""
+    import numpy as np
+
+    n = max(errs, key=errs.get)
+    return {"tensor": n, "peak_rel": errs[n],
+            "median_peak_rel": float(np.median(list(errs.values())))}
+
+
+def peak_rel_errors(got, want):
+    return {n: float((got[n].double() - w.double()).abs().max())
+            / max(float(w.abs().max()), 1e-30) for n, w in want.items()}
+
+
+def phase_mesh_train(scenes):
+    """Mesh training (parallel/data_parallel.py) on the card. (1) Four gloo
+    ranks sharing the card as a 2 x 2 mesh, full-width MinkUNet34C (bf16)
+    on two of the train phase's scenes, one a shard, MESH_STEPS steps:
+    finite losses, running statistics equal across the data ranks and
+    replicated parameters across the model ranks (SHA-1); per rank step
+    ms, the gradient all-reduce's ms and bytes, sync-BN all-reduces a
+    step, peak memory; the first step's averaged gradient (split kernels
+    gathered) against a 2 x 1 mesh's on the same batch, beside the 2 x 1
+    step against itself, at bf16 and float32 (printed: see
+    MESH_CARD_CPU_TOL). (2) The narrow float32 2 x 2 step of the JAX mesh
+    test on the card's ranks against CPU ranks (the CPU route is held to
+    JAX by tests/test_torch_mesh_train.py) and against the 2 x 1 step on
+    the card (TP neutrality): losses, gradients and running statistics
+    within MESH_CARD_CPU_TOL of each peak. (3) One NCCL rank,
+    scene 0: make_dp_train_step on a 1 x 1 mesh against train/steps.py's step,
+    both under torch's deterministic algorithms, bit for bit; the single
+    step is repeated to show it repeats. (4) Both loops with
+    tpu.mesh_data=2 over two gloo ranks, one epoch on the loops' six
+    scenes: one step, rank 0's validation with the exact launches, and
+    rank 0's checkpoint restored by the single-process loop. Returns the
+    validations' launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from canonicalvoting_tpu_torch.config import load_config
+    from canonicalvoting_tpu_torch.data.loader import ListDataset
+    from canonicalvoting_tpu_torch.models.minkunet import MinkUNetBase
+    from canonicalvoting_tpu_torch.parallel.launch import run_ranks
+    from canonicalvoting_tpu_torch.train.checkpoint import read_checkpoint
+    from canonicalvoting_tpu_torch.train.joint_loop import run_joint_training
+    from canonicalvoting_tpu_torch.utils.weights import flatten, to_jax_variables
+
+    t_phase = time.perf_counter()
+    failures = []
+    device = "cuda:0" if DEVICE == "cuda" else DEVICE
+    joint_items, _ = train_items(scenes[:2])
+    narrow = MinkUNetBase(3, 64, compute_dtype="float32",
+                          generator=torch.Generator().manual_seed(5),
+                          **MESH_NARROW)
+    v = to_jax_variables(narrow)
+    job = {"device": device, "items": joint_items,
+           "narrow_items": mesh_narrow_items(),
+           "narrow_vars": (v["params"], v["batch_stats"])}
+    os.makedirs(MESH_DIR, exist_ok=True)
+    torch.cuda.empty_cache()
+
+    # (1) and (2): four ranks
+    t0 = time.perf_counter()
+    ranks = [r[0] for r in run_ranks([functools.partial(mesh_train_rank, job)],
+                                     4, os.path.join(MESH_DIR, "four"))]
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    finite = all(np.isfinite(list(c.values())).all()
+                 for r in ranks for c in r["2x2"]["losses"])
+    data_stats_equal = all(a["stats"] == b["stats"] for a in ranks for b in ranks
+                           if a["2x2"]["coords"][1] == b["2x2"]["coords"][1])
+    model_repl_equal = all(a["replicated"] == b["replicated"] for a in ranks
+                           for b in ranks
+                           if a["2x2"]["coords"][0] == b["2x2"]["coords"][0])
+
+    def narrow_errors(a, b):
+        errs = {"losses": max(abs(a["losses"][k] - b["losses"][k])
+                              / max(abs(b["losses"][k]), 1e-30) for k in b["losses"])}
+        for part in ("grads", "stats"):
+            errs[part] = max(peak_rel_errors(a[part], b[part]).values())
+        return errs
+
+    card_cpu = narrow_errors(r0["narrow_card_2x2"], r0["narrow_cpu_2x2"])
+    tp_narrow = narrow_errors(r0["narrow_card_2x2"], r0["narrow_card_2x1"])
+    checks = {"finite_losses": finite,
+              "stats_equal_across_data_ranks": data_stats_equal,
+              "replicated_equal_across_model_ranks": model_repl_equal,
+              "tp_neutral_narrow": max(tp_narrow.values()) <= MESH_CARD_CPU_TOL,
+              "card_vs_cpu": max(card_cpu.values()) <= MESH_CARD_CPU_TOL,
+              "no_jax": not any(m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                                    "canonicalvoting_tpu")
+                                for r in ranks for m in r["modules"])}
+    emit({"phase": "mesh_train", "part": "2x2", "spawn_and_run_s": spawn_s,
+          "scenes": [int(len(it[1])) for it in joint_items],
+          "per_rank": [{"rank": r["rank"], "rank_s": r["rank_s"], **r["2x2"]}
+                       for r in ranks],
+          "2x1": r0["2x1"], "full_width_2x2_vs_2x1": r0["full"],
+          "narrow_2x2_vs_2x1": tp_narrow, "narrow_card_vs_cpu": card_cpu,
+          "tol": MESH_CARD_CPU_TOL, "checks": checks})
+    failures += [k for k, ok in checks.items() if not ok]
+    del ranks, r0
+    torch.cuda.empty_cache()
+
+    # (3) one NCCL rank: the 1 x 1 mesh step against the single step
+    store = os.path.abspath(os.path.join(MESH_DIR, "store_one"))
+    if os.path.exists(store):
+        os.remove(store)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        single = one_rank_step(joint_items[:1], dp_step=False)
+        again = one_rank_step(joint_items[:1], dp_step=False)
+        mesh1 = one_rank_step(joint_items[:1], dp_step=True)
+    finally:
+        dist.destroy_process_group()
+    diffs = {part: max_diff(mesh1[i], single[i])
+             for i, part in enumerate(("losses", "grads", "state"))}
+    repeat = {part: max_diff(again[i], single[i])
+              for i, part in enumerate(("losses", "grads", "state"))}
+    bitwise = all(d == 0.0 for d in diffs.values())
+    emit({"phase": "mesh_train", "part": "one_nccl_rank",
+          "seconds": time.perf_counter() - t0, "bitwise": bitwise,
+          "max_abs_diff": diffs, "single_repeat_max_abs_diff": repeat})
+    if not bitwise:
+        failures.append(("1x1 mesh step differs from the single step", diffs,
+                         repeat))
+    del single, again, mesh1
+    torch.cuda.empty_cache()
+
+    # (4) the loops over two ranks
+    lj, ls, gts = loop_scene_items(LOOP_SCENES + LOOP_VAL)
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0 = time.perf_counter()
+        loops = [r[0] for r in run_ranks(
+            [functools.partial(mesh_loops_rank, {
+                "device": device, "joint": lj, "separate": ls, "gts": gts,
+                "root": root})], 2, os.path.join(MESH_DIR, "loops"))]
+        loops_s = time.perf_counter() - t0
+        launches = {n: sum(lp[name]["launches"][n] for lp in loops
+                           for name in ("joint", "separate")) for n in SOURCES}
+        lchecks = {}
+        for name, per in (("joint", VAL_JOINT), ("separate", VAL_SEPARATE)):
+            l0, l1 = (lp[name]["launches"] for lp in loops)
+            lchecks[name] = {
+                "one_step": all(lp[name]["step"] == 1 for lp in loops),
+                "rank0_validation_launches": all(
+                    l0[k] == n * LOOP_VAL for k, n in per.items()),
+                "rank0_splats": l0["hv_splat"] >= LOOP_VAL,
+                "rank1_launches_none": not any(l1.values()),
+                "same_map": loops[0][name]["map"] == loops[1][name]["map"]}
+        # rank 0's joint checkpoint in the single-process loop
+        ckpt = os.path.join(root, "joint", "epoch0.ckpt")
+        tree, epoch = read_checkpoint(ckpt)
+        single_dir = os.path.join(root, "single")
+        shutil.copytree(os.path.join(root, "joint"), single_dir)
+        state, ret = run_joint_training(
+            load_config(None, ["batch_size=3", "num_workers=1"]),
+            ListDataset(lj[:LOOP_SCENES]), ListDataset(lj[LOOP_SCENES:]),
+            workdir=single_dir, gt_lookup=gts.get, eval_every=1, max_epoch=0,
+            device=DEVICE)
+        restored = to_jax_variables(state.model)
+        want = dict(flatten(tree["params"]))
+        want.update(flatten(tree["batch_stats"]))
+        got = {**dict(flatten(restored["params"])),
+               **dict(flatten(restored["batch_stats"]))}
+        lchecks["checkpoint_restores"] = (
+            ret is None and state.step == 1 and epoch == 0
+            and set(got) == set(want)
+            and all(np.array_equal(got[k], np.asarray(want[k], np.float32))
+                    for k in want))
+        del state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "mesh_train", "part": "loops", "spawn_and_run_s": loops_s,
+          "ranks": loops, "checks": lchecks})
+    for name, c in lchecks.items():
+        if c is not True and not (isinstance(c, dict) and all(c.values())):
+            failures.append(("loops", name, c))
+    emit({"phase": "mesh_train", "total_s": time.perf_counter() - t_phase,
+          "failures": failures})
+    assert not failures, failures
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4103,7 +4682,8 @@ def main() -> int:
               ("train_dense", lambda: phase_train_dense(scenes)),
               ("train_remat", lambda: phase_train_remat(scenes)),
               ("hough_backward", lambda: phase_hough_backward(pipe, scenes)),
-              ("parallel", lambda: phase_parallel(pipe, sep(), scenes, smi)))
+              ("parallel", lambda: phase_parallel(pipe, sep(), scenes, smi)),
+              ("mesh_train", lambda: phase_mesh_train(scenes)))
     for name, run in phases:
         try:
             done[name] = run()
@@ -4117,15 +4697,15 @@ def main() -> int:
     # phase, the non-lazy phase, the variants phase, the two CLIs of the
     # scannet phase, the sparse phase's joint and separate passes, the
     # sampler's batch, the training loops' validations, with and without
-    # remat, the parallel phase's fan-outs on one rank and on two), each
-    # counted from 0; the fused block, which no path runs, counts phase 1's
-    # checks
+    # remat, the parallel phase's fan-outs on one rank and on two, the mesh
+    # loops' validations on rank 0), each counted from 0; the fused block,
+    # which no path runs, counts phase 1's checks
     summary = done["phase1"]
     launches = {n: done["phase2"][0][n] + done["separate"][n]
                 + done["nonlazy"][n] + done["variants"][n] + done["scannet"][n]
                 + done["sparse"][n] + done["sunrgbd"][0][n] + done["train"][n]
                 + done["train_remat"][n] + done["parallel"][n]
-                for n in SOURCES}
+                + done["mesh_train"][n] for n in SOURCES}
     # row 5's largest error includes the sampler's configuration
     summary["hv_splat6"]["max_abs_err"] = max(
         summary["hv_splat6"]["max_abs_err"], done["sunrgbd"][1])

@@ -6,7 +6,7 @@ auto-resume, a JAX checkpoint resumed by the port's loop, the loop's first
 step equal to the step function's on the same batch, the CLIs over
 synthetic scenes and over a ScanNet-format tree (the datasets' training
 branch, augmentation on), the dense training route and block remat through
-both loops, and mesh training, which is not ported, raising."""
+both loops, and mesh training raising without a process group."""
 
 import json
 import math
@@ -127,8 +127,9 @@ def test_joint_loop_first_step_equals_the_step_function(tmp_path, joint_data):
     model.load_state_dict(init)
     ref = tsteps.create_train_state(model, 0.0, device="cpu")
     step = tsteps.make_joint_train_step(ref.model, cfg)
-    step(ref, collate_joint([items[i] for i in order], cap_multiple=256),
-         1e-3, 0.5)
+    # the loop collates flat level ids for the default dense site (the stem)
+    step(ref, collate_joint([items[i] for i in order], cap_multiple=256,
+                            with_flat_levels=True), 1e-3, 0.5)
     for k, v in ref.model.state_dict().items():
         assert torch.equal(v, state.model.state_dict()[k]), k
 
@@ -175,11 +176,14 @@ def test_separate_loop_validates_one_category(tmp_path):
 
 
 @pytest.mark.parametrize("route,override", [("mesh", "tpu.mesh_data=2")])
-def test_routes_not_ported_raise(tmp_path, route, override):
+def test_mesh_training_needs_a_process_group(tmp_path, route, override):
+    """Mesh training runs one process a device: without an initialized
+    process group both loops raise, naming torchrun and run_ranks
+    (tests/test_torch_mesh_train.py trains the mesh on four ranks)."""
     cfg = load_config(None, BASE + [override])
     for run in (joint_loop.run_joint_training,
                 separate_loop.run_separate_training):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        with pytest.raises(RuntimeError, match="torchrun.*run_ranks"):
             run(cfg, ListDataset([]), ListDataset([]), workdir=str(tmp_path),
                 model=_narrow(3, 8), device="cpu")
 
