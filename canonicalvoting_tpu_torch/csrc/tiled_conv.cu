@@ -1165,7 +1165,7 @@ cudaError_t launch_up(UpRows p, int n_par, int* rows, int want_dead, cudaStream_
 // compaction as the bfloat16 block does: conv1 into a compact mid, conv2
 // gathering through the row map, both with the splits the model's two
 // convs take, so its output equals theirs bit for bit. The ups (rows 3f,
-// 7f) keep the 64 x 64 tile of up_rows_f32_kernel below.
+// 7f) run the same ring core as a k = 1 product (up_rows_f32_kernel below).
 
 constexpr int FBM = 128;        // live rows a block
 constexpr int FBK = 16;         // channels a K step
@@ -1525,19 +1525,23 @@ __global__ void __launch_bounds__(256) split_reduce_f32_kernel(const __grid_cons
   }
 }
 
-// a conv_rows_f32_kernel instance's shared-memory limit, raised once a
-// device
-template <int BN, bool MAP>
-cudaError_t f32_smem_raised() {
-  static unsigned raised = 0;  // devices whose limit is raised for this instance
+// a kernel's dynamic shared-memory limit raised to bytes, once a device:
+// raised (the caller's, one a kernel instance) keeps a bit a device done
+template <typename K>
+cudaError_t smem_raised(K* kernel, int bytes, unsigned& raised) {
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 32 && (raised >> dev & 1u)) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      conv_rows_f32_kernel<BN, MAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      F32Tile<BN>::SMEM);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess && dev < 32) raised |= 1u << dev;
   return e;
+}
+
+template <int BN, bool MAP>
+cudaError_t f32_smem_raised() {
+  static unsigned raised = 0;
+  return smem_raised(conv_rows_f32_kernel<BN, MAP>, F32Tile<BN>::SMEM, raised);
 }
 
 // conv_rows_f32_kernel (and its K-split reduction) at the narrowest block
@@ -1596,16 +1600,38 @@ int launch_conv_f32(ConvF32 p, int n_rows, int* rows, int want_dead, cudaStream_
   return static_cast<int>(cudaGetLastError());
 }
 
-// the up at float32 (rows 3f, 7f): rows the live coarse parents, columns
-// the 8 parities' outputs (column j: parity j / cout, channel j % cout; wt
-// (8, cout, cpad) is then (8 cout, cpad)), K the parent's cin channels, 16
-// a step; a block of 256 threads owns 64 parents by 64 columns, each
-// thread 4 rows (16 apart) by 4 columns (16 apart), the step's operands
-// staged k-major in shared memory with the next step's global loads in
-// registers; the epilogue writes child 2p + d at channel c_off + j % cout
-// as up_rows_kernel does. Each output is one product: a repeat is bitwise.
-constexpr int FM = 64, FN = 64, FK = 16, FT = 256;
-
+// the up at float32 (rows 3f, 7f): TPU kernels tiled_up2 (_up2_kernel,
+// ops/pallas/tiled_conv.py:1392) and tiled_up2_into (_up2v2_kernel,
+// :1803), out[2p + d] = relu?(occ * (W[d] @ in[p] * scale + bias)) over the
+// listed fine tiles. It is the ring core above as a k = 1 product: rows
+// the live coarse parents (compact_kernel, up mode), 128 a block; columns
+// the 8 parities' outputs, column j parity j / cout and channel j % cout,
+// so the weights (8, cout, cpad) load as (8 cout, 1, cpad); K the parent's
+// cin channels, 16 a step, with no split (cin <= 256 at the backbone's
+// ups: at most 16 steps). Each output is one fmaf chain over the channels
+// in ascending order, then fmaf(v, scale, bias), the mask and ReLU, so a
+// repeat is bitwise and the outputs are the 64 x 64 tile's before it.
+// What bounds it: bytes (the listed fine cells' outputs, the live
+// parents' inputs, the weights; 8 cout MACs a parent channel). So:
+// - BN is the widest of 128, 96 and 64 that divides cout (256, 128: 128;
+//   96: 96): a column block is one parity's channel slice and each of its
+//   rows one child, whose cell and occupancy the block works out once
+//   into shared memory. The epilogue stages the tile through the free
+//   ring and stores each child's BN channels with 16-byte stores,
+//   consecutive threads on consecutive channels (vec_o; 4-byte stores
+//   where the widths or the output's alignment do not allow).
+// - A cout that none divides takes BN 64 with a block's columns across
+//   parities: each output works out its child and reads its occupancy, and
+//   stores 4 bytes. Correct, not fast.
+// - Work items (row block, column block), columns fastest so a row
+//   block's inputs stay in L2, run one a block over a 1-D grid bounded by
+//   the live count.
+// An unoccupied child keeps tiled_up2's wrapper zeros; the into-conv (into
+// = 1) writes exact zeros there, and up_dead_kernel at its dead parents'
+// children. On the H100 the GEMM runs at ~43% of the FFMA rate, as the
+// convs' core does, over all 8 children of a live parent (~1.4 of them
+// occupied at L0), so its FFMA loop, not the bytes, sets its time
+// (PERF.md).
 struct UpF32 {
   const float* x;
   int cin, cpad;
@@ -1619,115 +1645,116 @@ struct UpF32 {
   const float* scale;
   const float* bias;
   const float* occ;
-  int ctot, c_off, into, relu, vec_a;
+  int ctot, c_off, into, relu, vec_a, vec_o;
   float* out;
 };
 
-// this thread's 4 operand values (parent m = tid / 4, channels 4 (tid % 4)
-// .. of step s) and 4 weight values (column n0 + tid / 4, the same channels)
-__device__ __forceinline__ void up_f32_load(const UpF32& p, int ncol, int n0, const int* cell,
-                                            int s, float (&a)[4], float (&b)[4]) {
-  const int c0 = s * FK + (threadIdx.x & 3) * 4, m = threadIdx.x >> 2, cl = cell[m];
-  if (p.vec_a) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (cl >= 0 && c0 < p.cin) v = *reinterpret_cast<const float4*>(p.x + (long long)cl * p.cin + c0);
-    a[0] = v.x;
-    a[1] = v.y;
-    a[2] = v.z;
-    a[3] = v.w;
-  } else {
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      a[t] = cl >= 0 && c0 + t < p.cin ? p.x[(long long)cl * p.cin + c0 + t] : 0.f;
-  }
-  const int gn = n0 + m;  // weight rows are cpad-aligned: one float4
-  float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (gn < ncol) w = *reinterpret_cast<const float4*>(p.wt + (long long)gn * p.cpad + c0);
-  b[0] = w.x;
-  b[1] = w.y;
-  b[2] = w.z;
-  b[3] = w.w;
+// cell offset of parity d's child (x-fastest: d = dx + 2 dy + 4 dz) from 2p
+__device__ __forceinline__ int child_off(const Grid& g, int d) {
+  return ((d & 1) * g.ym + ((d >> 1) & 1)) * g.zm + (d >> 2);
 }
 
-__global__ void __launch_bounds__(FT) up_rows_f32_kernel(const __grid_constant__ UpF32 p) {
-  __shared__ float as[FK][FM + 4];
-  __shared__ float bs[FK][FN + 4];
-  __shared__ int cell[FM];
-  __shared__ int pc[FM][3];
-  const int tid = threadIdx.x, tm = tid >> 4, tn = tid & 15;
-  const int lm = tid >> 2, lk = (tid & 3) * 4;
-  const int n0 = blockIdx.y * FN, ncol = 8 * p.cout;
+// relu?(occ * fmaf(v, scale, bias)) of output channel n
+__device__ __forceinline__ float up_epilogue(const UpF32& p, float v, int n, float o) {
+  if (p.scale != nullptr) v = fmaf(v, p.scale[n], p.bias[n]);
+  if (p.occ != nullptr) v = v * o;
+  return p.relu ? fmaxf(v, 0.f) : v;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(F32Tile<BN>::THREADS, F32Tile<BN>::MIN_BLOCKS)
+    up_rows_f32_kernel(const __grid_constant__ UpF32 p) {
+  using T = F32Tile<BN>;
+  constexpr int TP = BN + 8;  // staged tile pitch: a warp's 4 rows 8 banks apart
+  static_assert(FBM * TP <= FSTAGES * T::STAGE, "the staged tile fits the ring");
+  extern __shared__ __align__(16) float fring[];
+  __shared__ int cell[FBM];   // the parent's cell in gin, -1 past the live rows
+  __shared__ int ocell[FBM];  // one parity a block: the child's cell in gout; else 2p's
+  __shared__ float orow[FBM];  // one parity a block: occ at the child
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tm = (warp / T::WN) * 4 + (lane >> 3), tn = (warp % T::WN) * 8 + (lane & 7);
+  const int ncol = 8 * p.cout, col_blocks = (ncol + BN - 1) / BN;
+  const bool one = p.cout % BN == 0;  // a column block is one parity's slice
   const int n_live = p.count[0];
-  const int steps = p.cpad / FK;
-  float acc[4][4];
-  for (int rb = blockIdx.x; rb * FM < n_live; rb += gridDim.x) {
-    if (tid < FM) {
-      const int i = rb * FM + tid;
-      int c = -1;
+  float acc[8][T::TJ];
+  for (int it = blockIdx.x; it < (n_live + FBM - 1) / FBM * col_blocks; it += gridDim.x) {
+    const int rb = it / col_blocks, n0 = (it - rb * col_blocks) * BN;
+    const int d0 = n0 / p.cout, c0 = n0 - d0 * p.cout;  // the first column's parity, channel
+    const F32Taps ld{p.x, p.cin, 1, 0, 0, p.vec_a, p.gin, p.wt, p.cpad, ncol, n0, cell,
+                     nullptr};
+    for (int r = tid; r < FBM; r += T::THREADS) {
+      const int i = rb * FBM + r;
+      int c = -1, oc = -1;
+      float o = 1.f;
       if (i < n_live) {
         int px, py, pz;
         parent_cell(p.tl, p.rows[i], px, py, pz);
-        pc[tid][0] = px;
-        pc[tid][1] = py;
-        pc[tid][2] = pz;
         c = static_cast<int>(flat(p.gin, px + MX, py + MY, pz + MZ));
+        oc = static_cast<int>(flat(p.gout, 2 * px + MX, 2 * py + MY, 2 * pz + MZ));
+        if (one) {
+          oc += child_off(p.gout, d0);
+          if (p.occ != nullptr) o = p.occ[oc];
+        }
       }
-      cell[tid] = c;
+      cell[r] = c;
+      ocell[r] = oc;
+      orow[r] = o;
     }
     __syncthreads();
+    f32_ring_gemm<BN>(ld, 0, ld.steps(), fring, acc);
+    if (one && p.vec_o) {  // the tile through the free ring, 16-byte stores
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    float a[4], b[4];
-    up_f32_load(p, ncol, n0, cell, 0, a, b);
-    for (int s = 0; s < steps; ++s) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        as[lk + t][lm] = a[t];
-        bs[lk + t][lm] = b[t];
-      }
+        for (int j = 0; j < T::TJ; ++j) fring[(tm + 16 * i) * TP + tn + T::TNC * j] = acc[i][j];
       __syncthreads();
-      if (s + 1 < steps) up_f32_load(p, ncol, n0, cell, s + 1, a, b);
-#pragma unroll
-      for (int kk = 0; kk < FK; ++kk) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = as[kk][tm + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tn + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      constexpr int Q = BN / 4;
+      for (int e = tid; e < FBM * Q; e += T::THREADS) {
+        const int m = e / Q, q = (e - m * Q) * 4, cl = ocell[m];
+        if (cl < 0) continue;
+        const float o = orow[m];
+        const bool zero = p.occ != nullptr && o == 0.f;
+        if (zero && !p.into) continue;
+        const float4 a = *reinterpret_cast<const float4*>(fring + m * TP + q);
+        const int n = c0 + q;
+        *reinterpret_cast<float4*>(p.out + (long long)cl * p.ctot + p.c_off + n) =
+            zero ? make_float4(0.f, 0.f, 0.f, 0.f)
+                 : make_float4(up_epilogue(p, a.x, n, o), up_epilogue(p, a.y, n + 1, o),
+                               up_epilogue(p, a.z, n + 2, o), up_epilogue(p, a.w, n + 3, o));
       }
-      __syncthreads();
-    }
+    } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = tm + 16 * i;
-      if (cell[m] < 0) continue;
+      for (int i = 0; i < 8; ++i) {
+        const int m = tm + 16 * i, base = ocell[m];
+        if (base < 0) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + tn + 16 * j;
-        if (col >= ncol) continue;
-        const int d = col / p.cout, n = col - d * p.cout;
-        const long long ch = flat(p.gout, 2 * pc[m][0] + (d & 1) + MX,
-                                  2 * pc[m][1] + ((d >> 1) & 1) + MY,
-                                  2 * pc[m][2] + (d >> 2) + MZ);
-        const float o = p.occ != nullptr ? p.occ[ch] : 1.f;
-        // an unoccupied child: tiled_up2 leaves the wrapper's zeros, the
-        // into-conv writes them
-        if (p.occ != nullptr && o == 0.f && !p.into) continue;
-        float v = acc[i][j];
-        if (p.scale != nullptr) v = v * p.scale[n] + p.bias[n];
-        if (p.occ != nullptr) v = v * o;
-        if (p.relu) v = fmaxf(v, 0.f);
-        p.out[ch * p.ctot + p.c_off + n] = p.occ != nullptr && o == 0.f ? 0.f : v;
+        for (int j = 0; j < T::TJ; ++j) {
+          const int col = n0 + tn + T::TNC * j;
+          if (col >= ncol) continue;
+          const int d = col / p.cout, n = col - d * p.cout;
+          const int ch = one ? base : base + child_off(p.gout, d);
+          const float o = one ? orow[m] : p.occ != nullptr ? p.occ[ch] : 1.f;
+          const bool zero = p.occ != nullptr && o == 0.f;
+          if (zero && !p.into) continue;
+          p.out[(long long)ch * p.ctot + p.c_off + n] =
+              zero ? 0.f : up_epilogue(p, acc[i][j], n, o);
+        }
       }
     }
-    __syncthreads();  // cell and pc are rewritten by the next row block
+    __syncthreads();  // cell, ocell, orow and the ring are rewritten by the next item
   }
+}
+
+template <int BN>
+cudaError_t launch_up_f32_rows(const UpF32& p, int n_par, cudaStream_t s) {
+  using T = F32Tile<BN>;
+  static unsigned raised = 0;
+  const cudaError_t e = smem_raised(up_rows_f32_kernel<BN>, T::SMEM, raised);
+  if (e != cudaSuccess) return e;
+  const int col_blocks = (8 * p.cout + BN - 1) / BN;
+  up_rows_f32_kernel<BN>
+      <<<blocks_for((long long)n_par * col_blocks, FBM), T::THREADS, T::SMEM, s>>>(p);
+  return cudaGetLastError();
 }
 
 int launch_up_f32(UpF32 p, int n_par, int* rows, int want_dead, cudaStream_t s) {
@@ -1737,9 +1764,10 @@ int launch_up_f32(UpF32 p, int n_par, int* rows, int want_dead, cudaStream_t s) 
                                                      count, want_dead, nullptr);
   p.rows = rows;
   p.count = count;
-  const dim3 grid(blocks_for(n_par, FM), (8 * p.cout + FN - 1) / FN);
-  up_rows_f32_kernel<<<grid, FT, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e = p.cout % 128 == 0  ? launch_up_f32_rows<128>(p, n_par, s)
+                        : p.cout % 96 == 0 ? launch_up_f32_rows<96>(p, n_par, s)
+                                           : launch_up_f32_rows<64>(p, n_par, s);
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -2022,7 +2050,8 @@ extern "C" int tiled_up2_f32_launch(
   auto* of = static_cast<float*>(out);
   const UpF32 p{static_cast<const float*>(x), cin, cpad, Grid{cxm, cym, czm},
                 static_cast<const float*>(wt), cout, tl, go, nullptr, nullptr, scale, bias,
-                occ, ctot, 0, 0, relu, cin % 4 == 0 && aligned16(x), of};
+                occ, ctot, 0, 0, relu, cin % 4 == 0 && aligned16(x),
+                cout % 4 == 0 && ctot % 4 == 0 && aligned16(out), of};
   const int e = launch_up_f32(p, n_rows / 8, rows, 0, s);
   if (e != 0) return e;
   if (skip != nullptr) {
@@ -2048,7 +2077,8 @@ extern "C" int tiled_up2_into_f32_launch(
   auto* of = static_cast<float*>(dest);
   const UpF32 p{static_cast<const float*>(x), cin, cpad, Grid{cxm, cym, czm},
                 static_cast<const float*>(wt), cout, tl, go, nullptr, nullptr, scale, bias,
-                occ, ctot, skip_c, 1, relu, cin % 4 == 0 && aligned16(x), of};
+                occ, ctot, skip_c, 1, relu, cin % 4 == 0 && aligned16(x),
+                cout % 4 == 0 && ctot % 4 == 0 && skip_c % 4 == 0 && aligned16(dest), of};
   const int want_dead = occ != nullptr;
   const int e = launch_up_f32(p, n_par, rows, want_dead, s);
   if (e != 0) return e;

@@ -109,7 +109,13 @@ The f32 phase runs rows 1-3, 6, 7 and 9 on float32 grids
 against its plain version (1e-5 of each output's peak, TF32 off), a
 bitwise repeat and exact zeros at unoccupied listed cells, timed as phase
 1 times the bf16 rows (bounds at the float32 FFMA rate) and summed by
-level (one by_level line, row 9 beside its two convs); the fused block at
+level (one by_level line, row 9 beside its two convs), the into-conv's
+conv channels bit for bit tiled_up2's; the unmasked checks at float32,
+the ups (tiled_up2 and tiled_up2_into on the same inputs) at each up level
+L0-L3 and at cin 13, cout 40, skip_c 30, 300 and 0 live parents (1e-5 of
+the peak, a bitwise repeat, exact zeros at unoccupied listed children, the
+into-conv's conv channels tiled_up2's and dest's skip channels and unlisted
+cells kept, bit for bit); the fused block at
 each of the 23 BasicBlocks of a float32 joint pass, checked as phase 1
 checks the bf16 one (1e-5 of the peak against its plain version, the two
 float32 convs and a repeat bit for bit, launches_f32 exactly 23); the
@@ -168,6 +174,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1205,9 +1212,9 @@ def unmasked_inputs(r):
 
 
 def unmasked_checks(records, kern, plain, levels, failures,
-                    rel_tol=CONV_REL_TOL, phase=1):
+                    rel_tol=CONV_REL_TOL, phase=1, row_levels=ROW_KERNELS):
     """One configuration of each occupied-row kernel at each of its
-    ROW_KERNELS levels (the conv with a plain residual) on unmasked random
+    row_levels levels (the conv with a plain residual) on unmasked random
     inputs, against the plain version, and a repeated call bitwise equal;
     the prefolded stem, the down and the into-conv also write exact zeros
     at their unoccupied listed cells (the into-conv: in its conv channels,
@@ -1223,8 +1230,8 @@ def unmasked_checks(records, kern, plain, levels, failures,
     done = set()
     for key, r in records.items():
         name = r["name"]
-        lvl = levels.get(tuple(r["kw"]["occ"].shape)) if name in ROW_KERNELS else None
-        if lvl not in ROW_KERNELS.get(name, ()) or (name, lvl) in done:
+        lvl = levels.get(tuple(r["kw"]["occ"].shape)) if name in row_levels else None
+        if lvl not in row_levels.get(name, ()) or (name, lvl) in done:
             continue
         if name == "tiled_conv3d" and (r["kw"].get("residual") is None
                                        or r["kw"].get("res_w") is not None):
@@ -1267,7 +1274,7 @@ def unmasked_checks(records, kern, plain, levels, failures,
               "max_abs_err": err, "ref_max": scale, "tol": rel_tol * scale,
               "bitwise_repeat": bitwise, **extra})
         del got, again, want, a, kw
-    want_done = {(n, lvl) for n, lvls in ROW_KERNELS.items() for lvl in lvls}
+    want_done = {(n, lvl) for n, lvls in row_levels.items() for lvl in lvls}
     if done != want_done:
         failures.append(("unmasked inputs: checked only", sorted(done)))
 
@@ -2991,8 +2998,9 @@ F32_KERNELS = {
     "tiled_conv3d_prefolded": "compact_kernel, conv_rows_f32_kernel (x taps)",
     "tiled_down2": "compact_kernel, conv_rows_f32_kernel (down), "
                    "split_reduce_f32_kernel",
-    "tiled_up2": "compact_kernel, up_rows_f32_kernel, skip_copy_kernel<float>",
-    "tiled_up2_into": "compact_kernel, up_rows_f32_kernel (into), "
+    "tiled_up2": "compact_kernel, up_rows_f32_kernel<BN> (the ring core "
+                 "of conv_rows_f32_kernel, k = 1), skip_copy_kernel<float>",
+    "tiled_up2_into": "compact_kernel, up_rows_f32_kernel<BN> (into), "
                       "up_dead_kernel<float>",
     "tiled_block3d": "compact_kernel (row map), conv_rows_f32_kernel (conv1 into "
                      "the compact mid), conv_rows_f32_kernel (conv2 through the "
@@ -3025,14 +3033,209 @@ def f32_unoccupied_zeros(name, got, a, kw):
     return bool((got.reshape(-1, got.shape[3])[flat[unocc], c0:c1] == 0).all())
 
 
+# the float32 ups' unmasked checks cover every up level of the model (the
+# into-conv's too: up_checks derives its calls at L2 and L3); the other
+# rows keep ROW_KERNELS' levels
+F32_ROW_LEVELS = {n: v for n, v in ROW_KERNELS.items()
+                  if n not in ("tiled_up2", "tiled_up2_into")}
+F32_UP_LEVELS = (0, 1, 2, 3)
+# the float32 up at widths and live counts the model does not give it:
+# (case, cin, cout, skip_c, live parents or None for about half the listed
+# ones). cin 13: element copies (no float4 loads); cout 40: column blocks
+# across parities; skip_c 30: one-parity blocks with 4-byte stores; 300
+# live parents: a last row block of 44; 0: an empty live list
+F32_UP_CASES = (("cin13", 13, 96, 32, None), ("cout40", 96, 40, 24, None),
+                ("skip30", 96, 96, 30, None), ("ragged", 96, 96, 32, 300),
+                ("empty", 96, 96, 32, 0))
+
+
+def bits(t):
+    """t's bits as integers, so that equality is bit for bit (+0 and -0,
+    NaNs)."""
+    import torch
+
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def up_checks(x, w, tiles, kw, skip, skip_c):
+    """The checks of one up configuration at float32: tiled_up2 against
+    its plain version (F32_REL_TOL of the peak), a repeat and exact zeros in
+    its conv channels at the unoccupied listed children (dead parents
+    among the listed ones); tiled_up2_into on
+    the same inputs into a dest with a random skip and INTO_JUNK in its conv
+    channels, against its plain version, a repeat, exact zeros at the
+    unoccupied listed children, its conv channels bit for bit tiled_up2's
+    and dest's skip channels and unlisted cells kept bit for bit. Where
+    skip_c + cout passes the into-conv's limit (L2, L3), the into-conv runs
+    without the skip and, past 128, on the first 128 output channels
+    (against tiled_up2 on the same). Returns {check: value}."""
+    import torch
+
+    import canonicalvoting_tpu_torch.ops.tiled_conv as tc
+    from canonicalvoting_tpu_torch.data.dense_prep import MX, MY, MZ
+
+    cout = w.shape[2]
+    up = functools.partial(tc.tiled_up2, x, w, tiles, skip=skip, skip_c=skip_c, **kw)
+    got, again = up(), up()
+    want = tc.tiled_up2_plain(x, w, tiles, skip=skip, skip_c=skip_c, **kw)
+    err, peak = rel_err(got, want)
+    del want
+    occ = kw["occ"]
+    cells = tc._row_cells(tiles, kw["tile_shape"])
+    flat = tc._flat(cells, occ.shape)
+    unocc = occ.reshape(-1)[flat] == 0
+    rows = got.reshape(-1, got.shape[3])
+    parents = torch.unique(cells >> 1, dim=0)
+    live = int((torch.nn.functional.max_pool3d(
+        occ[MX:-MX, MY:-MY, MZ:-MZ][None, None], 2)[0, 0][
+            parents[:, 0], parents[:, 1], parents[:, 2]] > 0).sum())
+    out = {"listed_parents": int(tiles.shape[0]) * math.prod(kw["tile_shape"]) // 8,
+           "live_parents": live,
+           "dead_parents_present": live < parents.shape[0],
+           "unoccupied_listed_cells": int(unocc.sum()),
+           "up_max_abs_err": err, "up_ref_max": peak,
+           "up_within_tol": err <= F32_REL_TOL * peak,
+           "up_bitwise_repeat": bool(torch.equal(bits(got), bits(again))),
+           "up_unoccupied_exact_zeros": bool((rows[flat[unocc], :cout] == 0).all())}
+    del again
+    skc, co = ((skip_c, cout) if skip_c + cout <= tc.UP_INTO_MAX_CHANNELS
+               else (0, min(cout, tc.UP_INTO_MAX_CHANNELS)))
+    ikw = dict(kw)
+    if co == cout:
+        ref = rows[flat, :cout]
+    else:
+        w = w[..., :co].contiguous()
+        ikw["scale"], ikw["bias"] = kw["scale"][:co], kw["bias"][:co]
+        cut = tc.tiled_up2(x, w, tiles, **ikw)
+        ref = cut.reshape(-1, co)[flat]
+        del cut
+    dest = torch.full(occ.shape + (skc + co,), INTO_JUNK, dtype=x.dtype,
+                      device=x.device)
+    if skc:
+        dest[..., :skc] = skip[..., :skc]
+    into = functools.partial(tc.tiled_up2_into, x, w, tiles, skip_c=skc, **ikw)
+    gi, again = into(dest=dest.clone()), into(dest=dest.clone())
+    want = tc.tiled_up2_into_plain(x, w, tiles, dest=dest.clone(), skip_c=skc, **ikw)
+    ikey = {"skip_c": skc, "tile_shape": kw["tile_shape"]}
+    err, peak = rel_err(into_conv_rows(gi, (x, w, tiles), ikey),
+                        into_conv_rows(want, (x, w, tiles), ikey))
+    del want
+    ri, rd = gi.reshape(-1, skc + co), dest.reshape(-1, skc + co)
+    listed = torch.zeros(ri.shape[0], dtype=torch.bool, device=ri.device)
+    listed[flat] = True
+    out.update({
+        "into_skip_c": skc, "into_cout": co,
+        "into_max_abs_err": err, "into_ref_max": peak,
+        "into_within_tol": err <= F32_REL_TOL * peak,
+        "into_bitwise_repeat": bool(torch.equal(bits(gi), bits(again))),
+        "into_unoccupied_exact_zeros": bool((ri[flat[unocc], skc:] == 0).all()),
+        "into_bitwise_equal_tiled_up2": bool(torch.equal(
+            bits(ri[flat, skc:]), bits(ref))),
+        "into_skip_and_unlisted_kept": bool(
+            torch.equal(bits(ri[:, :skc]), bits(rd[:, :skc]))
+            and torch.equal(bits(ri[~listed]), bits(rd[~listed])))})
+    return out
+
+
+def up_case_inputs(cin, cout, skip_c, n_live, seed):
+    """(x, w, tiles, kw, skip) of a synthetic float32 up on the card: a
+    16 x 16 x 32 coarse interior, (8, 8, 32) fine tiles of which 24 of 32
+    are listed, the last one twice more (a padded list); n_live listed
+    parents (about half for None; n_live outside the repeated tile, so that
+    the kernel's live count is n_live) with a random non-empty set of
+    occupied children, random occupancy in the unlisted tiles; x and the
+    skip random at every cell."""
+    import numpy as np
+    import torch
+
+    from canonicalvoting_tpu_torch.data.dense_prep import MX, MY, MZ
+
+    rng = np.random.RandomState(seed)
+    cdims, ts = (16, 16, 32), (8, 8, 32)
+    fdims = tuple(2 * d for d in cdims)
+    nt = [f // t for f, t in zip(fdims, ts)]
+    all_tiles = np.stack(np.meshgrid(*[np.arange(n) for n in nt],
+                                     indexing="ij"), -1).reshape(-1, 3)
+    order = rng.permutation(len(all_tiles))
+    listed, unlisted = all_tiles[order[:24]], all_tiles[order[24:]]
+    tiles = np.concatenate([listed, listed[-1:], listed[-1:]]).astype(np.int32)
+    occ = np.zeros(fdims, np.float32)
+    for t in unlisted:
+        sl = tuple(slice(t[i] * ts[i], (t[i] + 1) * ts[i]) for i in range(3))
+        occ[sl] = rng.rand(*ts) < 0.3
+    hs = tuple(t // 2 for t in ts)
+    local = np.stack(np.meshgrid(*[np.arange(h) for h in hs], indexing="ij"),
+                     -1).reshape(-1, 3)
+    parents = (listed[:, None] * np.array(hs) + local[None]).reshape(-1, 3)
+    pick = parents if n_live is None else parents[:-len(local)]
+    n = len(pick) // 2 if n_live is None else n_live
+    for p in pick[rng.choice(len(pick), n, replace=False)]:
+        kids = rng.rand(8) < 0.5
+        kids[rng.randint(8)] = True
+        for d in np.flatnonzero(kids):
+            occ[2 * p[0] + (d & 1), 2 * p[1] + ((d >> 1) & 1), 2 * p[2] + (d >> 2)] = 1
+    occ = np.pad(occ, ((MX, MX), (MY, MY), (MZ, MZ)))
+    cm = tuple(d + 2 * m for d, m in zip(cdims, (MX, MY, MZ)))
+    dev = DEVICE
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    x = t(rng.randn(*cm, cin).astype(np.float32))
+    skip = t(rng.randn(*occ.shape, skip_c).astype(np.float32))
+    w = t((rng.randn(8, cin, cout) * 0.2).astype(np.float32))
+    kw = {"tile_shape": ts, "occ": t(occ), "relu_out": True,
+          "scale": t(rng.rand(cout).astype(np.float32) + 0.5),
+          "bias": t(rng.randn(cout).astype(np.float32) * 0.1)}
+    return x, w, t(tiles), kw, skip
+
+
+def f32_up_checks(records, levels, failures):
+    """The float32 up (rows 3f, 7f) through up_checks: on unmasked random
+    inputs (x and the skip random at every cell) at each of the model's up
+    levels F32_UP_LEVELS, from the recorded tiled_up2 call, and at the
+    synthetic F32_UP_CASES."""
+    import torch
+
+    def cases():
+        done = set()
+        for key, r in records.items():
+            lvl = levels[tuple(r["kw"]["occ"].shape)] if r["name"] == "tiled_up2" else None
+            if lvl is None or lvl in done:
+                continue
+            done.add(lvl)
+            a, kw = unmasked_inputs(r)
+            skip, skip_c = kw.pop("skip", None), kw.pop("skip_c", 0)
+            yield ({"level": lvl, "config": [str(v) for v in key[1:]]},
+                   up_checks(*a[:3], kw, skip, skip_c))
+        if done != set(F32_UP_LEVELS):
+            failures.append(("float32 up unmasked inputs: levels", sorted(done)))
+        for i, (case, cin, cout, skip_c, n_live) in enumerate(F32_UP_CASES):
+            x, w, tiles, kw, skip = up_case_inputs(cin, cout, skip_c, n_live, 100 + i)
+            res = up_checks(x, w, tiles, kw, skip, skip_c)
+            if n_live is not None:
+                res["live_parents_as_asked"] = res["live_parents"] == n_live
+            yield {"case": case, "cin": cin, "cout": cout, "skip_c": skip_c}, res
+
+    for what, res in cases():
+        ok = all(v for v in res.values() if isinstance(v, bool))
+        emit({"phase": "f32", "kernel": "tiled_up2, tiled_up2_into",
+              "check": "up_widths", **what, **res, "ok": ok})
+        if not ok:
+            failures.append(("float32 up", what, res))
+    torch.cuda.empty_cache()
+
+
 def phase_f32(scenes):
     """Float32 grids through rows 1-3, 6, 7 and 9 (tpu.conv_dtype=float32):
     every configuration of the float32 joint path (default and
     up_impl="into") and the separate path's prefolded stem, recorded on
     scene 0, against its plain version (F32_REL_TOL of each output's
     peak), a repeat (bitwise) and exact zeros at its unoccupied listed
-    cells, timed as phase 1 times the bf16 rows and summed by level; the
-    unmasked checks at float32; the fused block on the recorded input of
+    cells (the into-conv: its conv channels tiled_up2's bit for bit), timed
+    as phase 1 times the bf16 rows and summed by level; the unmasked checks
+    at float32 (the ups at L0-L3 and at the F32_UP_CASES widths through
+    f32_up_checks); the fused block on the recorded input of
     each of the float32 joint pass's 23 BasicBlocks, as phase 1 holds the
     bf16 block (its plain version within F32_REL_TOL, the two float32 convs
     and a repeat bit for bit, launches_f32 exactly 23); the float32 joint
@@ -3101,8 +3304,16 @@ def phase_f32(scenes):
         zeros = f32_unoccupied_zeros(name, got, a, kw)
         if zeros is not None:
             extra["unoccupied_exact_zeros"] = zeros
+        if name == "tiled_up2_into":  # the conv channels: tiled_up2's, bit for bit
+            up = tc.tiled_up2(*a[:3], **{k: kw[k] for k in (
+                "tile_shape", "scale", "bias", "occ", "relu_out")})
+            extra["bitwise_equal_tiled_up2"] = bool(torch.equal(
+                bits(into_conv_rows(got, a, kw)),
+                bits(into_conv_rows(up, a, {**kw, "skip_c": 0}))))
+            del up
         if not (err <= F32_REL_TOL * scale and extra["bitwise_repeat"]
-                and zeros is not False):
+                and zeros is not False
+                and extra.get("bitwise_equal_tiled_up2", True)):
             failures.append((key, err, F32_REL_TOL * scale, extra))
         del got, again, want
         kw_k, kw_p = fresh(kw), fresh(kw)
@@ -3135,7 +3346,8 @@ def phase_f32(scenes):
               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, **extra})
     unmasked_checks(records, kern, plain, levels, failures,
-                    rel_tol=F32_REL_TOL, phase="f32")
+                    rel_tol=F32_REL_TOL, phase="f32", row_levels=F32_ROW_LEVELS)
+    f32_up_checks(records, levels, failures)
     records.clear()
     occ_of.clear()
     torch.cuda.empty_cache()

@@ -139,6 +139,51 @@ def test_into_at_model_widths_zeroes_junk_dest(cin):
     assert np.abs(rows[flat[occ_rows[flat] > 0], skip_c:]).max() > 0.1
 
 
+@pytest.mark.parametrize("kernel", ["tiled_up2", "tiled_up2_into"])
+@pytest.mark.parametrize("cin,cout,skip_c", [(13, 24, 8), (16, 40, 24)],
+                         ids=["cin13", "cout40"])
+def test_plain_ups_at_ragged_widths_match_jax(kernel, cin, cout, skip_c):
+    """The widths where the card's float32 up leaves its fast path (cin 13:
+    element copies, no float4 loads; cout 40: column blocks across
+    parities), at which chip_smoke's f32 phase holds it to these plain
+    versions: tiled_up2_plain and tiled_up2_into_plain at float32 against
+    the JAX kernels in interpret mode, on two (8, 8, 32) fine tiles, the
+    into-conv over a dest holding junk (7.0) in its conv channels."""
+    rng = np.random.RandomState(11)
+    fdims, ts, group = (16, 8, 32), (8, 8, 32), 1
+    xc, occ, fine, skip, w, scale, bias = _case(rng, fdims, cin, cout, skip_c,
+                                                60, 250)
+    tiles = _tiles(fine, fdims, ts, group)
+    occ_m = _margin(occ)
+    x = _t(_margin(xc))
+    assert x.dtype == torch.float32 and tiles.shape[0] == 2
+    kw = dict(tile_shape=ts, scale=_t(scale), bias=_t(bias), occ=_t(occ_m),
+              relu_out=True)
+    jkw = dict(scale=jnp.asarray(scale), bias=jnp.asarray(bias),
+               relu_out=True, tile_shape=ts, group=group, interpret=True)
+    args = (_lanes(_margin(xc)), jnp.asarray(w), jnp.asarray(tiles))
+    if kernel == "tiled_up2":
+        want = jtc.tiled_up2(
+            *args, skip=_lanes(_margin(skip)), skip_c=skip_c,
+            occ=jtc.pack_occ_parity(jnp.asarray(occ_m), jnp.asarray(tiles),
+                                    ts), **jkw)
+        got = ttc.tiled_up2_plain(x, _t(w), _t(tiles), skip=_t(_margin(skip)),
+                                  skip_c=skip_c, **kw).numpy()
+        conv = got[..., :cout]
+    else:
+        junk = np.full(occ_m.shape + (skip_c + cout,), 7.0, np.float32)
+        junk[..., :skip_c] = _margin(skip)
+        want = jtc.tiled_up2_into(
+            *args, dest=_lanes(junk), skip_c=skip_c,
+            occ=jtc.pack_occ_updma(jnp.asarray(occ_m), jnp.asarray(tiles), ts,
+                                   group), **jkw)
+        got = ttc.tiled_up2_into_plain(x, _t(w), _t(tiles), dest=_t(junk.copy()),
+                                       skip_c=skip_c, **kw).numpy()
+        conv = got[..., skip_c:]
+    np.testing.assert_allclose(got, np.asarray(want)[..., :skip_c + cout], **TOL)
+    assert np.abs(conv[conv != 7.0]).max() > 0.1
+
+
 def test_into_width_limit():
     """The JAX kernel asserts skip_c + cout <= 128 (tiled_conv.py:2013): the
     wrapper raises past it, and so does a model whose L0 or L1 concat would

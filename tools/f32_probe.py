@@ -19,8 +19,19 @@ JSON line with:
   zero fill included), its bound (``chip_smoke.py``'s ``conv_bound`` /
   ``prefold_bound`` at the float32 FFMA rate) and the largest difference
   between the two ports' outputs relative to the output's peak
-  (``max_rel_diff``; the two sum in other orders, so not bitwise);
+  (``max_rel_diff``; two ports that sum in other orders differ) and
+  whether every call's outputs are equal bit for bit (``bitwise_equal``);
 - ``by_level``: the same for ``tiled_conv3d`` (row 1f) at each level L0-L4;
+- ``ups``: rows 3f (``tiled_up2``, L0-L3) and 7f (``tiled_up2_into``, L0
+  and L1) by level: the listed coarse parents (``listed``: a padded tile
+  list repeats its last tile; ``repeats``: the listed parents that a
+  repeated tile lists again, recomputed by both ports), the live ones
+  (``live``, repeats included, as the kernel counts them) and the live
+  repeats; whether both ports' outputs are equal bit for bit; and in turns
+  the device ms of one call by piece (``torch.profiler`` over ``reps``
+  calls: ``memset``, ``compaction``, ``gemm``, ``skip_copy``, ``up_dead``,
+  ``fill``, ``other``). ``kernel_part_3f_ms`` sums row 3f's pieces but the
+  fill a scene, ``device_7f_ms`` row 7f's, in the same turns;
 - ``paths``: the float32 joint backbone (ms a scene, chip_smoke's scene 0)
   and the joint path over chip_smoke's three scenes with planted tails
   (scenes/s), and the nine separate backbones of a scene (ms), each with
@@ -30,6 +41,7 @@ JSON line with:
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -43,7 +55,12 @@ from splat_probe import load_chip_smoke  # noqa: E402
 
 ROWS = ("tiled_conv3d", "tiled_down2", "tiled_up2", "tiled_conv3d_prefolded",
         "tiled_up2_into")
+UPS = ("tiled_up2", "tiled_up2_into")
 TURNS = ("parent", "current", "current", "parent")
+# a profiler kernel name's piece of an up call
+UP_PIECES = (("compact_kernel", "compaction"), ("up_rows_f32_kernel", "gemm"),
+             ("skip_copy_kernel", "skip_copy"), ("up_dead_kernel", "up_dead"),
+             ("FillFunctor", "fill"), ("emset", "memset"))
 
 
 def record(cs, du, pipe, sep, args, sep_args):
@@ -68,6 +85,54 @@ def turns(cs, fns, reps):
     for who in TURNS:
         out[who].append(cs.time_ms(fns[who], reps))
     return out
+
+
+def up_pieces_ms(fn, reps):
+    """{piece: device ms} of one call of an up wrapper, from
+    ``torch.profiler`` over ``reps`` calls after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if not str(e.device_type).endswith("CUDA") or us <= 0:
+            continue
+        piece = next((label for key, label in UP_PIECES if key in e.key), "other")
+        out[piece] = out.get(piece, 0.0) + us / 1e3 / reps
+    return out
+
+
+def parent_counts(tiles, tile_shape, occ):
+    """The listed coarse parents of an up call, as compact_kernel lists
+    them: listed, repeats (listed again by a repeated tile), live (an
+    occupied child; repeats included) and live repeats."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from canonicalvoting_tpu_torch.data.dense_prep import MX, MY, MZ
+
+    hs = [t // 2 for t in tile_shape]
+    local = torch.stack(torch.meshgrid(
+        *[torch.arange(h, device=tiles.device) for h in hs], indexing="ij"),
+        -1).reshape(-1, 3)
+    par = tiles.long()[:, None] * torch.tensor(hs, device=tiles.device) + local[None]
+    pooled = F.max_pool3d(occ[MX:-MX, MY:-MY, MZ:-MZ][None, None], 2)[0, 0] > 0
+    live = pooled[par[..., 0], par[..., 1], par[..., 2]].cpu().numpy()
+    _, first = np.unique(tiles.cpu().numpy(), axis=0, return_index=True)
+    rep = np.ones(tiles.shape[0], bool)
+    rep[first] = False
+    return {"listed": int(live.size), "repeats": int(rep.sum()) * local.shape[0],
+            "live": int(live.sum()), "live_repeats": int(live[rep].sum())}
 
 
 def wall_turns(cs, fns):
@@ -118,10 +183,11 @@ def main() -> int:
 
     def zero():
         return {"calls": 0, "parent_ms": [0.0, 0.0], "current_ms": [0.0, 0.0],
-                "bound_ms": 0.0, "max_rel_diff": 0.0}
+                "bound_ms": 0.0, "max_rel_diff": 0.0, "bitwise_equal": True}
 
     rows = {n: zero() for n in ROWS}
     by_level = {}
+    ups = []
     for r in records.values():
         name, a, kw, n = r["name"], r["args"], r["kw"], r["count"]
         fc, fp = getattr(tc, name), getattr(ptc, name)
@@ -129,6 +195,7 @@ def main() -> int:
         if name == "tiled_up2_into":
             got, want = cs.into_conv_rows(got, a, kw), cs.into_conv_rows(want, a, kw)
         diff, peak = cs.rel_err(got, want)
+        same = bool(torch.equal(cs.bits(got), cs.bits(want)))
         del got, want
         kc, kp = cs.fresh(kw), cs.fresh(kw)
         t = turns(cs, {"parent": lambda: fp(*a, **kp),
@@ -142,9 +209,30 @@ def main() -> int:
             s["calls"] += n
             s["bound_ms"] += bound * n
             s["max_rel_diff"] = max(s["max_rel_diff"], diff / peak if peak else 0.0)
+            s["bitwise_equal"] = s["bitwise_equal"] and same
             for who in ("parent", "current"):
                 for i in range(2):
                     s[f"{who}_ms"][i] += t[who][i] * n
+        if name in UPS:
+            ups.append({
+                "name": name, "level": levels[tuple(kw["occ"].shape)],
+                "per_scene": n, "bitwise_equal": same,
+                "max_rel_diff": diff / peak if peak else 0.0,
+                "parents": parent_counts(a[2], kw["tile_shape"], kw["occ"]),
+                "pieces_ms": {who: [] for who in ("parent", "current")},
+                "fns": {"parent": functools.partial(fp, *a, **kp),
+                        "current": functools.partial(fc, *a, **kc)}})
+    for who in TURNS:
+        for u in ups:
+            u["pieces_ms"][who].append(up_pieces_ms(u["fns"][who], opt.reps))
+    part_3f = {who: [0.0, 0.0] for who in ("parent", "current")}
+    device_7f = {who: [0.0, 0.0] for who in ("parent", "current")}
+    for u in ups:
+        del u["fns"]
+        for who, per_turn in u["pieces_ms"].items():
+            for i, pieces in enumerate(per_turn):
+                ms = sum(v for k, v in pieces.items() if k != "fill") * u["per_scene"]
+                (part_3f if u["name"] == "tiled_up2" else device_7f)[who][i] += ms
     records.clear()
     torch.cuda.empty_cache()
 
@@ -180,6 +268,8 @@ def main() -> int:
             capture_output=True, text=True, timeout=60).stdout.strip(),
         "reps": opt.reps, "rows": rows,
         "by_level": {str(k): v for k, v in sorted(by_level.items())},
+        "ups": {"levels": ups, "kernel_part_3f_ms": part_3f,
+                "device_7f_ms": device_7f},
         "paths": {"joint_backbone_ms": backbone,
                   "separate_backbones_ms": separate,
                   "joint_scenes_per_s": {k: [len(scenes) / s for s in v]
